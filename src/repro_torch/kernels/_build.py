@@ -1,0 +1,131 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Every ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers) and
+is compiled by its own ``nvcc`` call for Hopper (``sm_90a``) into
+``build/kernels/lib<name>-<digest>.so`` at the repository root, then loaded
+with ``ctypes``.  The digest covers the source and the flags, so an edited
+source rebuilds.  :func:`build` starts one ``nvcc`` per source, all at once,
+and waits for them; :func:`library` builds on first use, so a bare run of
+``chip_smoke.py`` builds everything itself.  A missing ``nvcc`` or a failed
+build raises — there is no fallback.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an error
+(a refused launch never runs, and a later synchronize would not report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("mandelbrot", "block_lu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
+
+
+class LaunchCounter:
+    """How many times a wrapper launched its kernel (thread-safe: the
+    virtual devices' worker threads launch concurrently)."""
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
+          ptxas_verbose: bool = False) -> Dict[str, Dict[str, object]]:
+    """Compile ``names`` (default: all sources) in parallel, one nvcc each.
+
+    Up-to-date libraries are skipped unless ``force``.  Returns, per source
+    built, the wall seconds and the compiler's log (with ``ptxas_verbose``,
+    ``-Xptxas -v``'s registers, shared memory and spills per kernel).
+    """
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists() and not force:
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [compiler, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    report: Dict[str, Dict[str, object]] = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")

@@ -1,0 +1,95 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or ``repro``, the whole package imports
+with JAX unavailable, and its entry points default to the card — raising
+when there is none instead of picking the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_package_imports_without_jax():
+    modules = []
+    for p in sorted(PKG.rglob("*.py")):
+        parts = p.relative_to(PKG.parent).with_suffix("").parts
+        modules.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(len(sys.modules))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert len(modules) >= 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """CUDA absent, whatever the machine has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_runtime_defaults_to_the_card(no_cuda):
+    from repro_torch.core import ClusterRuntime, DevicePool, RuntimeConfig
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterRuntime(RuntimeConfig(n_virtual=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DevicePool.virtual(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DevicePool.from_config(["node0 2"])
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=2), device="cpu")
+    assert rt.device == torch.device("cpu")
+    rt.shutdown()
+
+
+def test_bots_default_to_the_card(no_cuda):
+    from repro_torch.bots import mandelbrot, sparselu
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sparselu.verify("small")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mandelbrot.verify("small")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sparselu.run("small", device_counts=(1,))
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """Without a card the script exits non-zero and prints no result."""
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,156 @@
+"""The port's kernel modules against the reference's Pallas kernels (run in
+interpret mode on the CPU), their jnp oracles and the JAX table kernels.
+
+On the CPU each ``ops`` wrapper runs its plain PyTorch version; the CUDA
+kernels are held against those plain versions on the card in
+``test_torch_cuda.py``.
+"""
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from benchmarks.bots_mandelbrot import _make_table as jax_mandel_table  # noqa: E402
+from repro.kernels.block_lu.block_lu import bmod as pallas_bmod  # noqa: E402
+from repro.kernels.block_lu.ref import (bdiv_ref as j_bdiv, bmod_ref as j_bmod,  # noqa: E402
+                                        fwd_ref as j_fwd, lu0_ref as j_lu0)
+from repro.kernels.mandelbrot.mandelbrot import mandelbrot as pallas_mandelbrot  # noqa: E402
+from repro.kernels.mandelbrot.ref import mandelbrot_ref as j_mandelbrot_ref  # noqa: E402
+from repro_torch.core import strip_partition  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.block_lu import ops as lu_ops  # noqa: E402
+from repro_torch.kernels.block_lu.block_lu import bmod_cuda  # noqa: E402
+from repro_torch.kernels.mandelbrot import ops as mb_ops  # noqa: E402
+from repro_torch.kernels.mandelbrot.mandelbrot import mandelbrot_rows_cuda  # noqa: E402
+
+# fp32 tolerance of the repo's kernel tests (tests/test_kernels.py:21-25)
+FP32 = dict(rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# K1 mandelbrot
+# ---------------------------------------------------------------------------
+def _mismatch(a, b) -> float:
+    return float((np.asarray(a) != np.asarray(b)).mean())
+
+
+def test_mandelbrot_plain_vs_pallas_and_oracle():
+    """Escape time is chaotic at the set boundary: like the reference's own
+    kernel test, tolerate float-order flips on < 0.5% of pixels."""
+    port = mb_ops.mandelbrot_strip(64, 64, max_iter=50, device="cpu").numpy()
+    assert _mismatch(port, pallas_mandelbrot(64, 64, max_iter=50,
+                                             interpret=True)) < 0.005
+    assert _mismatch(port, j_mandelbrot_ref(64, 64, max_iter=50)) < 0.005
+
+
+@pytest.mark.parametrize("H,W,iters", [(64, 64, 50), (40, 72, 30)])
+def test_mandelbrot_plain_equals_jax_table_kernel(H, W, iters):
+    """Same fp32 operations in the same order as ``mandel_strip(rows)``:
+    the counts are equal pixel for pixel."""
+    rows = np.arange(3, H, 2, dtype=np.int32)      # an arbitrary strip
+    jfn = jax_mandel_table(W, H, iters).lookup(0).fn
+    ref = np.asarray(jfn(jnp.asarray(rows))["out"])
+    port = mb_ops.mandelbrot_rows(torch.from_numpy(rows), W, H, iters).numpy()
+    np.testing.assert_array_equal(port, ref)
+
+
+def test_mandelbrot_strips_tile_the_image():
+    full = mb_ops.mandelbrot_strip(64, 32, max_iter=30, device="cpu")
+    parts = [mb_ops.mandelbrot_strip(ln, 32, max_iter=30, row_offset=s,
+                                     total_height=64, device="cpu")
+             for s, ln in strip_partition(64, 3)]
+    assert torch.equal(torch.cat(parts), full)
+
+
+# ---------------------------------------------------------------------------
+# K2 bmod and the solves
+# ---------------------------------------------------------------------------
+def _randn(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 64, 64), (128, 64, 32), (96, 96, 96)])
+def test_bmod_plain_vs_pallas_and_oracle(M, N, K):
+    a, l, u = _randn(M + N + K, (M, N), (M, K), (K, N))
+    port = lu_ops.bmod_op(*map(torch.from_numpy, (a, l, u))).numpy()
+    ja, jl, ju = map(jnp.asarray, (a, l, u))
+    pallas = pallas_bmod(ja, jl, ju, interpret=True, block_m=32, block_n=32,
+                         block_k=32)
+    np.testing.assert_allclose(port, np.asarray(pallas), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(port, np.asarray(j_bmod(ja, jl, ju)),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_bmod_plain_bf16_vs_oracle():
+    a, l, u = _randn(7, (32, 48), (32, 16), (16, 48))
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (a, l, u)]
+    port = lu_ops.bmod_op(*tb)
+    assert port.dtype == torch.bfloat16
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (a, l, u)]
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(j_bmod(*jb), np.float32),
+                               rtol=4e-2, atol=4e-2)
+
+
+@pytest.mark.parametrize("n", [16, 40])
+def test_solves_match_reference(n):
+    rng = np.random.default_rng(n)
+    a = (rng.standard_normal((n, n)) + np.eye(n) * 2 * n).astype(np.float32)
+    b, c = _randn(n + 1, (n, n), (n, n))
+    lu_t = lu_ops.lu0_op(torch.from_numpy(a))
+    lu_j = j_lu0(jnp.asarray(a))
+    np.testing.assert_allclose(lu_t.numpy(), np.asarray(lu_j), **FP32)
+    np.testing.assert_allclose(lu_ops.fwd_op(lu_t, torch.from_numpy(b)).numpy(),
+                               np.asarray(j_fwd(lu_j, jnp.asarray(b))), **FP32)
+    np.testing.assert_allclose(lu_ops.bdiv_op(lu_t, torch.from_numpy(c)).numpy(),
+                               np.asarray(j_bdiv(lu_j, jnp.asarray(c))), **FP32)
+    for fn in (lu_ops.fwd_op, lu_ops.bdiv_op):
+        assert fn(lu_t, torch.from_numpy(b)).is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers: no fallback, checked inputs
+# ---------------------------------------------------------------------------
+def test_cuda_launchers_refuse_cpu_tensors():
+    x = torch.zeros(4, 4)
+    with pytest.raises(ValueError):
+        bmod_cuda(x, x, x)
+    with pytest.raises(ValueError):
+        mandelbrot_rows_cuda(torch.arange(4, dtype=torch.int32), 8, 8, 10)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()
+
+
+def test_launch_counter_is_thread_safe():
+    import sys
+    import threading
+    counter = _build.LaunchCounter()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [counter.add() for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert counter.count == 16 * 2000
+    counter.reset()
+    assert counter.count == 0
