@@ -12,8 +12,13 @@ runs, printing one JSON line per phase:
 1. the card's name and power limit (``nvidia-smi``), the build, and
    ``-Xptxas -v``'s registers and spills per kernel;
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with its time, the plain version's time and (for bmod)
-   ``torch.addmm``'s;
+   path's shapes, with its time, the plain version's time and, where one
+   PyTorch call computes the same function, that call's (``torch.addmm``
+   for bmod, ``scaled_dot_product_attention`` for the attention kernels):
+   mandelbrot and bmod, then flash attention (4 sequences x 24 heads over
+   8 kv heads, 512 causal rows, d = 128; also a window, a ragged Sq and
+   d = 256) and flash decode (32 kv rows x 3 query heads over a 1024-row
+   cache with per-row kv_len from 0 to 1024; also d = 256), fp32 and bf16;
 3. the paper's Listings 1–2 on 8 virtual devices;
 4. BOTS mandelbrot at the paper's 4600 x 4600 image, max_iter 300:
    ``offload_strips`` on 8 virtual devices against the one-region serial
@@ -21,9 +26,16 @@ runs, printing one JSON line per phase:
 5. BOTS sparselu: the ``nowait``/``resident`` wavefront on 4 virtual devices
    for K=16, B=128 (a 2048² fp32 matrix, 1,496 tasks, 1,240 bmod launches)
    and for K=5, B=96, against the serial kernel, with the residual
-   ‖L·U − A‖/‖A‖ in float64.
+   ‖L·U − A‖/‖A‖ in float64;
+6. LM serving: minitron-4b at full width (32 layers, d_model 3072, bf16,
+   random weights from seed 0) with the kernels on: 8 requests of 512
+   tokens in continuous mode, then 4 in wave mode (one unpadded prefill:
+   flash attention on each layer; 31 decodes: flash decode on each layer);
+   then the kernel route against the plain route on the same weights
+   (prefill and decode logits), and a 2-layer fp32 model at full width
+   whose greedy tokens must be equal on both routes.
 
-Phases 4 and 5 then run their workload once more under ``torch.profiler``
+Phases 4, 5 and 6 then run a workload once more under ``torch.profiler``
 and report the card's busy share of that run.
 
 Every kernel's launch count is set to 0 just before a main-path phase and
@@ -55,6 +67,18 @@ MANDEL_SIZE, MANDEL_ITER, MANDEL_DEVICES = 4600, 300, 8
 LU_K, LU_B, LU_DEVICES = 16, 128, 4
 LU_LARGE = (5, 96)                      # the reference's "large" size
 BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (200, 72, 136))   # (M, N, K)
+# the serve phase's attention shapes (minitron-4b: 8 kv heads, r = 3, d = 128)
+ATTN_MAIN = (4, 8, 3, 512, 128)         # K4: (B, K, r, Sq = Skv, d)
+DECODE_MAIN = (32, 3, 1024, 128)        # K3: (B·K, r, S, d)
+DECODE_LENS = (0, 1, 2, 17, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 300,
+               383, 384, 500, 511, 512, 513, 576, 640, 700, 767, 768, 800, 900,
+               1000, 1023, 1024, 31)    # per-row kv_len, one per B·K row
+SERVE_ARCH, SERVE_BATCH, SERVE_MAX_LEN, SERVE_PROMPT = "minitron-4b", 4, 1024, 512
+SERVE_BUDGETS = (16, 32, 48, 64)        # max_new_tokens, cycled over the requests
+WAVE_BUDGET = 32
+# kernel route against plain route, bf16 logits: 8-bit mantissas, and the
+# two routes round attention outputs differently on every one of 32 layers
+LOGITS_REL_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -215,6 +239,114 @@ def phase_kernels(torch, peaks):
     return k1, k2
 
 
+def _kernel_layout(q, k, v):
+    """Model layout (q [B,S,H,d], k/v [B,S,K,d]) → the kernels' (batch·kv
+    head, group) layout, as the reference's ``gqa_flash_attention`` does."""
+    B, S, H, d = q.shape
+    K = k.shape[2]
+    return (q.reshape(B, S, K, H // K, d).permute(0, 2, 3, 1, 4).reshape(B * K, H // K, S, d),
+            k.permute(0, 2, 1, 3).reshape(B * K, -1, d),
+            v.permute(0, 2, 1, 3).reshape(B * K, -1, d))
+
+
+def _model_layout(o, B: int, K: int):
+    BK, r, S, d = o.shape
+    return o.reshape(B, K, r, S, d).permute(0, 3, 1, 2, 4).reshape(B, S, K * r, d)
+
+
+def phase_attention_kernels(torch, peaks):
+    """K4 and K3 against their plain versions at the serve path's shapes
+    (minitron-4b: 8 kv heads, r = 3, d = 128), plus a window, a ragged Sq
+    and d = 256 for K4 and d = 256 for K3, in fp32 and bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    dtypes = ((torch.float32, 1e-4), (torch.bfloat16, 4e-2))
+    B, K, r, S, d = ATTN_MAIN
+    cases, main = [], None
+    for (Sq, dd, window) in ((S, d, 0), (S, d, 128), (200, d, 0), (S, 256, 0)):
+        for dtype, tol in dtypes:
+            q = randn(B, Sq, K * r, dd, dtype=dtype)
+            k, v = randn(B, Sq, K, dd, dtype=dtype), randn(B, Sq, K, dd, dtype=dtype)
+            out = gqa_flash_attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            ref = _model_layout(flash_attention_ref(*_kernel_layout(q, k, v), causal=True,
+                                                    window=window), B, K)
+            err = float((out.float() - ref.float()).abs().max())
+            cases.append({"Sq": Sq, "d": dd, "window": window, "dtype": str(dtype),
+                          "max_abs_err": err, "tolerance": tol,
+                          "pass": bool(torch.allclose(out.float(), ref.float(),
+                                                      rtol=tol, atol=tol))})
+            if (Sq, dd, window, dtype) == (S, d, 0, torch.bfloat16):
+                main = (q, k, v, err)
+    q, k, v, err = main
+    qk, kk, vk = _kernel_layout(q, k, v)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = B * K * r * S * (S + 1) // 2              # unmasked (query, key) pairs
+    k4_bound, k4_by = bound_ms(peaks, 2 * (2 * q.numel() + 2 * k.numel()),
+                               4 * d * pairs, "bf16_flops")
+    k4 = {"name": "flash_attention", "shape": {"B": B, "Sq": S, "H": K * r, "K": K, "d": d,
+                                               "causal": True, "dtype": "bfloat16"},
+          "cases": cases, "max_abs_err": err,
+          "ms": time_ms(torch, lambda: gqa_flash_attention(q, k, v, causal=True), 20),
+          "plain_ms": time_ms(torch, lambda: flash_attention_ref(qk, kk, vk, causal=True), 3),
+          "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+              qs, ks, vs, is_causal=True, enable_gqa=True), 20),
+          "bound_ms": k4_bound, "bound_by": k4_by,
+          "pass": all(c["pass"] for c in cases)}
+    emit({"phase": "kernel_check", **k4})
+
+    BK, r, S, d = DECODE_MAIN
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    cases, main = [], None
+    for dd in (d, 256):
+        for dtype, tol in dtypes:
+            q = randn(BK, r, dd, dtype=dtype)
+            kc, vc = randn(BK, S, dd, dtype=dtype), randn(BK, S, dd, dtype=dtype)
+            # the kernel's [BK, S, d] form: K = 1 kv head per row, per-row kv_len
+            out = flash_decode_cuda(q, kc[:, :, None], vc[:, :, None], lens)
+            torch.cuda.synchronize()
+            ref = flash_decode_ref(q, kc, vc, lens)
+            err = float((out.float() - ref.float()).abs().max())
+            cases.append({"BK": BK, "r": r, "S": S, "d": dd, "dtype": str(dtype),
+                          "max_abs_err": err, "tolerance": tol,
+                          "pass": bool(torch.allclose(out.float(), ref.float(),
+                                                      rtol=tol, atol=tol))})
+            if (dd, dtype) == (d, torch.bfloat16):
+                main = (q, kc, vc, err)
+    q, kc, vc, err = main
+    k4d, v4d = kc[:, :, None], vc[:, :, None]
+    rows = sum(min(n, S) if n > 0 else S for n in DECODE_LENS)   # cache rows needed
+    k3_bound, k3_by = bound_ms(peaks, 2 * (2 * rows * d + 2 * q.numel()) + 4 * BK,
+                               4 * d * r * rows, "bf16_flops")
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    q4, kl, vl = q[:, :, None], kc[:, None], vc[:, None]
+    k3 = {"name": "flash_decode", "shape": {"BK": BK, "r": r, "S": S, "d": d,
+                                            "kv_len": DECODE_LENS, "dtype": "bfloat16"},
+          "cases": cases, "max_abs_err": err,
+          "ms": time_ms(torch, lambda: flash_decode_cuda(q, k4d, v4d, lens), 200),
+          "plain_ms": time_ms(torch, lambda: flash_decode_ref(q, kc, vc, lens), 20),
+          "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+              q4, kl, vl, attn_mask=mask, enable_gqa=True), 200),
+          "bound_ms": k3_bound, "bound_by": k3_by,
+          "pass": all(c["pass"] for c in cases)}
+    emit({"phase": "kernel_check", **k3})
+    if not k4["pass"]:
+        fail(f"flash_attention kernel disagrees with its plain version: {k4['cases']}")
+    if not k3["pass"]:
+        fail(f"flash_decode kernel disagrees with its plain version: {k3['cases']}")
+    return k4, k3
+
+
 def phase_listings(torch):
     """Paper Listings 1–2 and offload_strips (examples/quickstart.py)."""
     from repro_torch.core import (ClusterRuntime, KernelTable, MapSpec,
@@ -329,6 +461,132 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int):
     return launches
 
 
+def phase_serve(torch):
+    """minitron-4b at full width (bf16, random weights from seed 0) served
+    with the kernels: continuous mode, then wave mode, each with the launch
+    counts set to 0 just before and read just after; then the kernel route
+    against the plain route on the same weights."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4mod
+    from repro_torch.kernels.flash_decode import flash_decode as k3mod
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    def reset():
+        k4mod.launches.reset()
+        k3mod.launches.reset()
+
+    def counts():
+        return k4mod.launches.count, k3mod.launches.count
+
+    cfg = get_config(SERVE_ARCH).replace(use_kernels=True)
+    L = cfg.n_layers
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).tolist() for _ in range(8)]
+    reqs = [Request(i, p, max_new_tokens=SERVE_BUDGETS[i % len(SERVE_BUDGETS)])
+            for i, p in enumerate(prompts)]
+    wave_reqs = [Request(i, p, max_new_tokens=WAVE_BUDGET) for i, p in enumerate(prompts[:4])]
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for mode, rs in (("continuous", reqs), ("wave", wave_reqs)):
+        eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                                                     mode=mode))
+        reset()
+        t0 = time.perf_counter()
+        res = eng.serve(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4n, k3n = counts()
+        tokens = sum(len(r.tokens) for r in res.values())
+        runs[mode] = {
+            "requests": len(rs), "wall_s": wall, "new_tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "prefill_s": sum(r.prefill_s for r in res.values()),
+            "decode_s": sum(r.decode_s for r in res.values()),
+            "flash_attention_launches": k4n, "flash_decode_launches": k3n,
+            "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
+                                and not res[r.rid].timed_out for r in rs)}
+        if mode == "wave":
+            wave_engine = eng
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_busy(torch, lambda: wave_engine.serve(wave_reqs))
+
+    # kernel route against plain route on the same weights
+    plain = Model(cfg.replace(use_kernels=False))
+    batch = {"tokens": torch.tensor(prompts[:4], dtype=torch.int32, device="cuda")}
+    lk, ck, pos = model.prefill(params, batch, cache_len=SERVE_MAX_LEN)
+    lp, cp, _ = plain.prefill(params, batch, cache_len=SERVE_MAX_LEN)
+    tok = torch.argmax(lp[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+    dk, _ = model.decode_step(params, tok, ck, pos)
+    dp, _ = plain.decode_step(params, tok, cp, pos)
+    del ck, cp
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    route = {"prefill_rel_err": rel(lk, lp), "decode_rel_err": rel(dk, dp),
+             "prefill_max_abs_err": float((lk.float() - lp.float()).abs().max()),
+             "decode_max_abs_err": float((dk.float() - dp.float()).abs().max()),
+             "argmax_agree": float((dk.argmax(-1) == dp.argmax(-1)).float().mean()),
+             "tolerance_rel": LOGITS_REL_TOL,
+             "finite": bool(torch.isfinite(lk).all() and torch.isfinite(dk).all())}
+    del params, model, plain
+    torch.cuda.empty_cache()
+
+    # full width, 2 layers, fp32, wave mode: kernel route tokens == plain route's
+    cfg2 = get_config(SERVE_ARCH).replace(n_layers=2, param_dtype="float32",
+                                          compute_dtype="float32")
+    params2 = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
+    small = [Request(i, p[:128], max_new_tokens=16) for i, p in enumerate(prompts[:4])]
+    fp32_tokens = {}
+    for use in (True, False):
+        eng = ServeEngine(Model(cfg2.replace(use_kernels=use)), params2,
+                          ServeConfig(batch=4, max_len=256, mode="wave"))
+        fp32_tokens[use] = {rid: r.tokens for rid, r in eng.serve(small).items()}
+    del params2
+    torch.cuda.empty_cache()
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    kv_bytes = 2 * L * SERVE_BATCH * SERVE_MAX_LEN * cfg.n_kv * cfg.head_dim * 2
+    row = {"phase": "serve", "arch": SERVE_ARCH, "layers": L, "d_model": cfg.d_model,
+           "params": n_params, "init_s": init_s, **{m: r for m, r in runs.items()},
+           "peak_allocated_bytes": peak, "card_bytes": card_bytes,
+           "weights_bytes": 2 * n_params, "kv_cache_bytes": kv_bytes,
+           "profiled_wave": busy, "kernel_vs_plain": route,
+           "fp32_2layer_tokens_equal": fp32_tokens[True] == fp32_tokens[False]}
+    emit(row)
+    c, w = runs["continuous"], runs["wave"]
+    if not (c["full_budgets"] and w["full_budgets"]):
+        fail("a request did not get its full token budget")
+    if c["flash_decode_launches"] == 0 or c["flash_decode_launches"] % L:
+        fail(f"continuous serve launched flash_decode {c['flash_decode_launches']} times, "
+             f"expected a positive multiple of {L}")
+    if (w["flash_attention_launches"], w["flash_decode_launches"]) != (L, L * (WAVE_BUDGET - 1)):
+        fail(f"wave serve launched K4/K3 {w['flash_attention_launches']}/"
+             f"{w['flash_decode_launches']} times, expected {L}/{L * (WAVE_BUDGET - 1)}")
+    if not route["finite"] or max(route["prefill_rel_err"],
+                                  route["decode_rel_err"]) > LOGITS_REL_TOL:
+        fail(f"kernel route disagrees with the plain route: {route}")
+    if not row["fp32_2layer_tokens_equal"]:
+        fail("fp32 kernel-route tokens differ from the plain route's")
+    return (c["flash_attention_launches"] + w["flash_attention_launches"],
+            c["flash_decode_launches"] + w["flash_decode_launches"])
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -345,10 +603,12 @@ def main() -> int:
     card = phase_card_and_build()
     peaks = PEAKS["pcie" if "pcie" in card.lower() else "sxm"]
     k1, k2 = phase_kernels(torch, peaks)
+    k4, k3 = phase_attention_kernels(torch, peaks)
     phase_listings(torch)
     k1_launches = phase_mandelbrot(torch)
     k2_launches = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
+    k4_launches, k3_launches = phase_serve(torch)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card, "peaks": peaks})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -360,6 +620,12 @@ def main() -> int:
         {**k2, "route": "cuda", "source": "src/repro_torch/csrc/block_lu.cu",
          "replaces": "src/repro/kernels/block_lu/block_lu.py:21",
          "launches": k2_launches},
+        {**k3, "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:30",
+         "launches": k3_launches},
+        {**k4, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+         "launches": k4_launches},
     ]
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the BOTS workloads launching them end to end.
+version, and the BOTS workloads and the LM server launching them end to end.
 
 Every test here needs a card and is marked ``cuda``; whether a card is
 present is decided inside the fixture, so every worker collects the same
@@ -14,12 +14,21 @@ import torch
 
 from repro_torch.bots import mandelbrot as tbm
 from repro_torch.bots import sparselu as tbl
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.block_lu import block_lu as k2
 from repro_torch.kernels.block_lu.ops import bmod_op
 from repro_torch.kernels.block_lu.ref import bmod_ref
+from repro_torch.kernels.flash_attention import flash_attention as k4
+from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_decode import flash_decode as k3
+from repro_torch.kernels.flash_decode.ops import gqa_flash_decode
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.mandelbrot import mandelbrot as k1
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_rows
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
+from repro_torch.models import Model
+from repro_torch.serve import Request, ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -63,3 +72,91 @@ def test_bots_verify_on_card(cuda_device):
     assert tbm.verify("small", n_devices=4, device="cuda") == (0, 0.0)
     assert tbl.verify("large", n_devices=4, device="cuda") == 0.0
     assert k1.launches.count > before[0] and k2.launches.count > before[1]
+
+
+# ---------------------------------------------------------------------------
+# K4 flash attention and K3 flash decode
+# ---------------------------------------------------------------------------
+TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
+
+
+def _rand(rng, shape, device, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("Sq,d,window", [(512, 128, 0), (512, 128, 128), (200, 128, 0),
+                                         (96, 64, 0), (130, 256, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_matches_plain(cuda_device, Sq, d, window, dtype):
+    """Model layout in, the plain version in the kernel's layout as the
+    reference; r = 3 query heads per kv head."""
+    rng = np.random.default_rng(Sq + d + window)
+    B, K, r = 2, 2, 3
+    q = _rand(rng, (B, Sq, K * r, d), cuda_device, dtype)
+    k = _rand(rng, (B, Sq, K, d), cuda_device, dtype)
+    v = _rand(rng, (B, Sq, K, d), cuda_device, dtype)
+    before = k4.launches.count
+    out = gqa_flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert k4.launches.count == before + 1
+    qk = q.reshape(B, Sq, K, r, d).permute(0, 2, 3, 1, 4).reshape(B * K, r, Sq, d)
+    kk = k.permute(0, 2, 1, 3).reshape(B * K, Sq, d)
+    vk = v.permute(0, 2, 1, 3).reshape(B * K, Sq, d)
+    ref = flash_attention_ref(qk, kk, vk, causal=True, window=window)
+    ref = ref.reshape(B, K, r, Sq, d).permute(0, 3, 1, 2, 4).reshape(B, Sq, K * r, d)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_cuda_matches_plain(cuda_device, d, dtype):
+    """Per-row kv_len from 0 (the mean of every value row) to past S."""
+    rng = np.random.default_rng(d)
+    B, S, K, r = 6, 300, 2, 3
+    q = _rand(rng, (B, 1, K * r, d), cuda_device, dtype)
+    kc = _rand(rng, (B, S, K, d), cuda_device, dtype)
+    vc = _rand(rng, (B, S, K, d), cuda_device, dtype)
+    lens = torch.tensor([0, 1, 63, 64, 299, 300], dtype=torch.int32, device=cuda_device)
+    before = k3.launches.count
+    out = gqa_flash_decode(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert k3.launches.count == before + 1
+    ref = flash_decode_ref(q.reshape(B * K, r, d),
+                           kc.permute(0, 2, 1, 3).reshape(B * K, S, d),
+                           vc.permute(0, 2, 1, 3).reshape(B * K, S, d),
+                           lens[:, None].expand(B, K).reshape(B * K)).reshape(B, 1, K * r, d)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_attention_kernels_refuse_unsupported_head_dim(cuda_device):
+    q = torch.zeros(1, 8, 3, 96, device=cuda_device)
+    k = torch.zeros(1, 8, 1, 96, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        gqa_flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        gqa_flash_decode(q[:, :1], k, k, 4)
+
+
+def test_two_layer_serve_launches_both_kernels(cuda_device):
+    """A 2-layer model (head dim 64, r = 3) served in wave mode with equal
+    prompts: one prefill (K4 per layer) and budget-1 decodes (K3 per
+    layer); its fp32 tokens equal the plain route's."""
+    cfg = get_smoke_config("minitron-4b").replace(
+        n_heads=6, n_kv=2, d_head=64, param_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(1, cfg.vocab, 16).tolist(), max_new_tokens=8)
+            for i in range(3)]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = Model(cfg).init(gen)
+    tokens = {}
+    for use in (True, False):
+        model = Model(cfg.replace(use_kernels=use))
+        before = (k4.launches.count, k3.launches.count)
+        eng = ServeEngine(model, params, ServeConfig(batch=3, max_len=32, mode="wave"))
+        tokens[use] = {rid: r.tokens for rid, r in eng.serve(reqs).items()}
+        launched = (k4.launches.count - before[0], k3.launches.count - before[1])
+        assert launched == ((2, 2 * 7) if use else (0, 0))
+    assert tokens[True] == tokens[False]
+    assert all(len(t) == 8 for t in tokens[True].values())

@@ -83,6 +83,21 @@ def test_bots_default_to_the_card(no_cuda):
         sparselu.run("small", device_counts=(1,))
 
 
+def test_model_and_engine_default_to_the_card(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    model = Model(get_smoke_config("minitron-4b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.load_numpy({"w": params["final_norm"].float().numpy()})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(model, params, ServeConfig())
+    assert ServeEngine(model, params, ServeConfig(), device="cpu").device.type == "cpu"
+
+
 def test_chip_smoke_refuses_without_a_card():
     """Without a card the script exits non-zero and prints no result."""
     code = ("import runpy, sys, torch\n"

@@ -1,5 +1,6 @@
 """The port's kernel modules against the reference's Pallas kernels (run in
-interpret mode on the CPU), their jnp oracles and the JAX table kernels.
+interpret mode on the CPU), their jnp oracles and the JAX table kernels:
+K1 mandelbrot, K2 bmod, K4 flash attention and K3 flash decode.
 
 On the CPU each ``ops`` wrapper runs its plain PyTorch version; the CUDA
 kernels are held against those plain versions on the card in
@@ -21,17 +22,32 @@ from benchmarks.bots_mandelbrot import _make_table as jax_mandel_table  # noqa: 
 from repro.kernels.block_lu.block_lu import bmod as pallas_bmod  # noqa: E402
 from repro.kernels.block_lu.ref import (bdiv_ref as j_bdiv, bmod_ref as j_bmod,  # noqa: E402
                                         fwd_ref as j_fwd, lu0_ref as j_lu0)
+from repro.kernels.flash_attention.flash_attention import flash_attention as pallas_fa  # noqa: E402
+from repro.kernels.flash_attention.ops import gqa_flash_attention as j_gqa_fa  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref  # noqa: E402
+from repro.kernels.flash_decode.flash_decode import flash_decode as pallas_fd  # noqa: E402
+from repro.kernels.flash_decode.ops import gqa_flash_decode as j_gqa_fd  # noqa: E402
+from repro.kernels.flash_decode.ref import flash_decode_ref as j_decode_ref  # noqa: E402
 from repro.kernels.mandelbrot.mandelbrot import mandelbrot as pallas_mandelbrot  # noqa: E402
 from repro.kernels.mandelbrot.ref import mandelbrot_ref as j_mandelbrot_ref  # noqa: E402
 from repro_torch.core import strip_partition  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_lu import ops as lu_ops  # noqa: E402
 from repro_torch.kernels.block_lu.block_lu import bmod_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.mandelbrot import ops as mb_ops  # noqa: E402
 from repro_torch.kernels.mandelbrot.mandelbrot import mandelbrot_rows_cuda  # noqa: E402
 
-# fp32 tolerance of the repo's kernel tests (tests/test_kernels.py:21-25)
+# tolerances of the repo's kernel tests (tests/test_kernels.py:21-25)
 FP32 = dict(rtol=2e-5, atol=2e-5)
+TOL = {"float32": FP32, "bfloat16": dict(rtol=4e-2, atol=4e-2)}
+
+torch.set_num_threads(1)      # six test workers share the CPU
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +133,68 @@ def test_solves_match_reference(n):
 
 
 # ---------------------------------------------------------------------------
+# K4 flash attention and K3 flash decode
+# ---------------------------------------------------------------------------
+def _same_inputs(seed, shapes, dtype):
+    """The same numpy draws as a JAX array and a torch tensor of ``dtype``."""
+    arrs = _randn(seed, *shapes)
+    return ([jnp.asarray(a, dtype) for a in arrs],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs])
+
+
+def _check(port, ref, dtype):
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref, np.float32),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [(64, 64, True, 0), (64, 64, True, 32),
+                                                  (32, 64, False, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_vs_pallas_and_oracle(Sq, Skv, causal, window, dtype):
+    """r = 3 query rows per kv row; causal, a window of 32, and Sq != Skv."""
+    (jq, jk, jv), (q, k, v) = _same_inputs(Sq + window, [(2, 3, Sq, 32), (2, Skv, 32),
+                                                         (2, Skv, 32)], dtype)
+    port = flash_attention_ref(q, k, v, causal=causal, window=window, block_kv=32)
+    assert port.dtype == q.dtype
+    _check(port, pallas_fa(jq, jk, jv, causal=causal, window=window, block_q=32,
+                           block_kv=32, interpret=True), dtype)
+    _check(port, j_attention_ref(jq, jk, jv, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_vs_pallas_and_oracle(dtype):
+    """Ragged per-row kv_len, including 0 (every score -1e30: the mean of
+    every value row) and the whole cache."""
+    (jq, jk, jv), (q, k, v) = _same_inputs(11, [(5, 3, 32), (5, 96, 32), (5, 96, 32)],
+                                           dtype)
+    lens = np.array([0, 1, 33, 64, 96], np.int32)
+    port = flash_decode_ref(q, k, v, torch.from_numpy(lens), block_kv=32)
+    _check(port, pallas_fd(jq, jk, jv, jnp.asarray(lens), block_kv=32,
+                           interpret=True), dtype)
+    _check(port, j_decode_ref(jq, jk, jv, jnp.asarray(lens)), dtype)
+    _check(port[0], jnp.broadcast_to(jv[0].astype(jnp.float32).mean(0), (3, 32)), dtype)
+
+
+def test_gqa_wrappers_match_the_reference_wrappers():
+    """The model-layout wrappers (CPU: the plain versions) against the
+    reference's (Pallas, interpreted): flash attention with a window, and
+    flash decode with a scalar and a per-sequence kv_len."""
+    B, S, H, K, d = 2, 64, 6, 2, 32
+    (jq, jk, jv), (q, k, v) = _same_inputs(12, [(B, S, H, d), (B, S, K, d),
+                                                (B, S, K, d)], "float32")
+    for window in (0, 16):
+        _check(fa_ops.gqa_flash_attention(q, k, v, causal=True, window=window,
+                                          block_kv=32),
+               j_gqa_fa(jq, jk, jv, causal=True, window=window, block_q=32,
+                        block_kv=32, interpret=True), "float32")
+    for kv_len in (40, np.array([17, 64], np.int32)):
+        jl = jnp.asarray(kv_len, jnp.int32)
+        tl = kv_len if np.ndim(kv_len) == 0 else torch.from_numpy(kv_len)
+        _check(fd_ops.gqa_flash_decode(q[:, :1], k, v, tl, block_kv=32),
+               j_gqa_fd(jq[:, :1], jk, jv, jl, block_kv=32, interpret=True), "float32")
+
+
+# ---------------------------------------------------------------------------
 # wrappers: no fallback, checked inputs
 # ---------------------------------------------------------------------------
 def test_cuda_launchers_refuse_cpu_tensors():
@@ -125,6 +203,12 @@ def test_cuda_launchers_refuse_cpu_tensors():
         bmod_cuda(x, x, x)
     with pytest.raises(ValueError):
         mandelbrot_rows_cuda(torch.arange(4, dtype=torch.int32), 8, 8, 10)
+    q = torch.zeros(1, 8, 3, 64)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q[:, :, :1], q[:, :, :1])
+    with pytest.raises(ValueError):
+        flash_decode_cuda(q[:, 0], q[:, :, :1], q[:, :, :1],
+                          torch.ones(1, dtype=torch.int32))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
