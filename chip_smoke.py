@@ -33,10 +33,22 @@ runs, printing one JSON line per phase:
    flash attention on each layer; 31 decodes: flash decode on each layer);
    then the kernel route against the plain route on the same weights
    (prefill and decode logits), and a 2-layer fp32 model at full width
-   whose greedy tokens must be equal on both routes.
+   whose greedy tokens must be equal on both routes;
+7. MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
+   64 experts top-6, 27.7 B parameters, bf16, random weights from seed 0)
+   with the kernels on: 8 requests of 512 tokens in continuous mode, then 4
+   in wave mode (one unpadded prefill and 15 decodes: the grouped-matmul
+   kernel three times per layer in each, flash attention in the prefill,
+   flash decode in every decode); then the kernel route against the plain
+   route: one MoE layer (routing equal, outputs close), full-depth logits
+   (reported, not gated: a routing flip between near-tied experts is a
+   legitimate difference) and a 2-layer fp32 model whose greedy tokens must
+   be equal on both routes.
 
-Phases 4, 5 and 6 then run a workload once more under ``torch.profiler``
-and report the card's busy share of that run.
+Phase 2 also holds the grouped-matmul kernel against its plain version at
+the MoE path's shapes, beside ``torch.bmm`` as the library yardstick.
+Phases 4 to 7 then run a workload once more under ``torch.profiler`` and
+report the card's busy share of that run.
 
 Every kernel's launch count is set to 0 just before a main-path phase and
 read just after; a kernel of the path that did not launch fails the run.
@@ -79,6 +91,19 @@ WAVE_BUDGET = 32
 # kernel route against plain route, bf16 logits: 8-bit mantissas, and the
 # two routes round attention outputs differently on every one of 32 layers
 LOGITS_REL_TOL = 5e-2
+# K6 at the MoE serve path's shapes (E, C, D, F): moonshot's gate/up
+# projections at prefill (C = 240, the capacity of 4 x 512 tokens) and at
+# decode (C = 1), its down projection at prefill, and a ragged shape
+GMM_SHAPES = ((64, 240, 2048, 1408), (64, 1, 2048, 1408), (64, 240, 1408, 2048),
+              (3, 3, 96, 100))
+# tolerances of the reference's own K6 test (tests/test_kernels.py:138-140)
+GMM_TOL = {"torch.float32": (1e-4, 1e-3), "torch.bfloat16": (3e-2, 3e-1)}
+MOE_ARCH, MOE_PARAMS = "moonshot-v1-16b-a3b", 27_722_450_944
+MOE_BUDGETS = (8, 16, 24, 32)           # max_new_tokens, cycled over the requests
+MOE_WAVE_BUDGET = 16
+# one MoE layer, kernel route against plain route (bf16): both accumulate
+# in fp32 and round once, so outputs differ by a bf16 ulp here and there
+MOE_LAYER_REL_TOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -347,6 +372,62 @@ def phase_attention_kernels(torch, peaks):
     return k4, k3
 
 
+def phase_gmm_kernel(torch, peaks):
+    """K6 against its plain version at the MoE serve path's shapes, fp32 and
+    bf16, with its time, the plain version's and ``torch.bmm``'s at the
+    three serve shapes (bf16)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as k6mod
+    from repro_torch.kernels.grouped_matmul.grouped_matmul import grouped_matmul_cuda
+    from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k6mod.launches.reset()
+    cases, serve_inputs = [], []
+    for shape in GMM_SHAPES:
+        E, C, D, F = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            rtol, atol = GMM_TOL[str(dtype)]
+            x = torch.randn(E, C, D, generator=gen, device=dev).to(dtype)
+            w = torch.randn(E, D, F, generator=gen, device=dev).to(dtype)
+            out = grouped_matmul_cuda(x, w)
+            torch.cuda.synchronize()
+            ref = grouped_matmul_ref(x, w)
+            err = float((out.float() - ref.float()).abs().max())
+            cases.append({"E": E, "C": C, "D": D, "F": F, "dtype": str(dtype),
+                          "max_abs_err": err, "rtol": rtol, "atol": atol,
+                          "pass": bool(torch.allclose(out.float(), ref.float(),
+                                                      rtol=rtol, atol=atol))})
+            if dtype == torch.bfloat16 and shape != GMM_SHAPES[-1]:
+                serve_inputs.append((shape, x, w, err))
+            del out, ref
+    check_launches = k6mod.launches.count
+    timings = []
+    for (E, C, D, F), x, w, err in serve_inputs:
+        reps = 50 if C == 1 else 10
+        bound, by = bound_ms(peaks, 2 * (E * C * D + E * D * F + E * C * F),
+                             2 * E * C * D * F, "bf16_flops")
+        timings.append({"E": E, "C": C, "D": D, "F": F, "dtype": "bfloat16",
+                        "max_abs_err": err,
+                        "ms": time_ms(torch, lambda: grouped_matmul_cuda(x, w), reps),
+                        "plain_ms": time_ms(torch, lambda: grouped_matmul_ref(x, w), 3),
+                        "library_ms": time_ms(torch, lambda: torch.bmm(x, w), reps),
+                        "bound_ms": bound, "bound_by": by})
+    del serve_inputs
+    torch.cuda.empty_cache()
+    main = timings[0]                     # the prefill gate/up projection
+    k6 = {"name": "grouped_matmul", "cases": cases, "timings": timings,
+          "shape": {k: main[k] for k in ("E", "C", "D", "F", "dtype")},
+          "check_launches": check_launches,
+          **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")},
+          "pass": all(c["pass"] for c in cases)}
+    emit({"phase": "kernel_check", **k6})
+    if not k6["pass"]:
+        fail(f"grouped_matmul kernel disagrees with its plain version: {cases}")
+    return k6
+
+
 def phase_listings(torch):
     """Paper Listings 1–2 and offload_strips (examples/quickstart.py)."""
     from repro_torch.core import (ClusterRuntime, KernelTable, MapSpec,
@@ -581,6 +662,182 @@ def phase_serve(torch):
             c["flash_decode_launches"] + w["flash_decode_launches"])
 
 
+def phase_serve_moe(torch):
+    """moonshot-v1-16b-a3b at full width and depth (bf16, random weights
+    from seed 0) served with the kernels: continuous mode, then wave mode,
+    each with the launch counts set to 0 just before and read just after;
+    then the kernel route against the plain route."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4mod
+    from repro_torch.kernels.flash_decode import flash_decode as k3mod
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as k6mod
+    from repro_torch.models import Model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import embed_apply, rms_norm
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    mods = (k6mod, k4mod, k3mod)
+    cfg = get_config(MOE_ARCH).replace(use_kernels=True)
+    L = cfg.n_layers
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).tolist() for _ in range(8)]
+    reqs = [Request(i, p, max_new_tokens=MOE_BUDGETS[i % len(MOE_BUDGETS)])
+            for i, p in enumerate(prompts)]
+    wave_reqs = [Request(i, p, max_new_tokens=MOE_WAVE_BUDGET)
+                 for i, p in enumerate(prompts[:4])]
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for mode, rs in (("continuous", reqs), ("wave", wave_reqs)):
+        eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                                                     mode=mode))
+        for m in mods:
+            m.launches.reset()
+        t0 = time.perf_counter()
+        res = eng.serve(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k6n, k4n, k3n = (m.launches.count for m in mods)
+        tokens = sum(len(r.tokens) for r in res.values())
+        runs[mode] = {
+            "requests": len(rs), "wall_s": wall, "new_tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "prefill_s": sum(r.prefill_s for r in res.values()),
+            "decode_s": sum(r.decode_s for r in res.values()),
+            "grouped_matmul_launches": k6n, "flash_attention_launches": k4n,
+            "flash_decode_launches": k3n,
+            "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
+                                and not res[r.rid].timed_out for r in rs)}
+        if mode == "wave":
+            wave_engine = eng
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_busy(torch, lambda: wave_engine.serve(wave_reqs))
+    del wave_engine, eng
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # (a) one MoE layer of the loaded weights, kernel route against plain
+    # route, on the prefill batch and on a decode batch
+    plain_cfg = cfg.replace(use_kernels=False)
+    lp = layer_params(params["layers"], 0)
+    batch = {"tokens": torch.tensor(prompts[:4], dtype=torch.int32, device="cuda")}
+    x_pre = rms_norm(embed_apply(params["embed"], batch["tokens"]), lp["norm2"], cfg.rms_eps)
+    m = cfg.moe
+    layer = {}
+    for name, x in (("prefill", x_pre), ("decode", x_pre[:, -1:].contiguous())):
+        T = x.shape[0] * x.shape[1]
+        C = int(np.ceil(T * m.top_k / m.n_experts * m.capacity_factor))
+        xt = x.reshape(T, -1)
+        _, idx = moe_mod.router_topk(xt.float() @ lp["moe"]["router"].float(), m.top_k)
+        _, dk, kk = moe_mod._dispatch(lp["moe"], xt, idx, C, cfg)
+        _, dp, kp = moe_mod._dispatch(lp["moe"], xt, idx, C, plain_cfg)
+        yk, _ = moe_mod.moe_apply(lp["moe"], x, cfg)
+        yp, _ = moe_mod.moe_apply(lp["moe"], x, plain_cfg)
+        layer[name] = {"tokens": T, "capacity": C, "kept_share": float(kk.float().mean()),
+                       "dest_keep_equal": bool(torch.equal(dk, dp) and torch.equal(kk, kp)),
+                       "y_rel_err": rel(yk, yp), "tolerance_rel": MOE_LAYER_REL_TOL,
+                       "finite": bool(torch.isfinite(yk).all())}
+
+    # (c) full-depth logits after prefill and one decode, both routes; the
+    # top-k expert sets each route chose, recorded from the router
+    chosen = []
+    real_router = moe_mod.router_topk
+
+    def recording_router(logits, top_k):
+        w, idx = real_router(logits, top_k)
+        chosen.append(idx.sort(dim=-1).values)
+        return w, idx
+
+    plain = Model(plain_cfg)
+    moe_mod.router_topk = recording_router
+    try:
+        pre_k, ck, pos = model.prefill(params, batch, cache_len=SERVE_MAX_LEN)
+        sets_pre_k, chosen[:] = list(chosen), []
+        pre_p, cp, _ = plain.prefill(params, batch, cache_len=SERVE_MAX_LEN)
+        sets_pre_p, chosen[:] = list(chosen), []
+        tok = torch.argmax(pre_p[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+        dec_k, _ = model.decode_step(params, tok, ck, pos)
+        sets_dec_k, chosen[:] = list(chosen), []
+        dec_p, _ = plain.decode_step(params, tok, cp, pos)
+        sets_dec_p, chosen[:] = list(chosen), []
+    finally:
+        moe_mod.router_topk = real_router
+    del ck, cp
+
+    def same_sets(a, b):
+        return float(torch.cat([(x == y).all(-1) for x, y in zip(a, b)]).float().mean())
+
+    route = {"prefill_rel_err": rel(pre_k, pre_p), "decode_rel_err": rel(dec_k, dec_p),
+             "prefill_argmax_agree": float((pre_k.argmax(-1) == pre_p.argmax(-1))
+                                           .float().mean()),
+             "decode_argmax_agree": float((dec_k.argmax(-1) == dec_p.argmax(-1))
+                                          .float().mean()),
+             "prefill_topk_sets_equal_share": same_sets(sets_pre_k, sets_pre_p),
+             "decode_topk_sets_equal_share": same_sets(sets_dec_k, sets_dec_p),
+             "finite": bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())}
+    del params, model, plain, lp, x_pre, batch
+    torch.cuda.empty_cache()
+
+    # (b) full width, 2 layers, fp32, wave mode: kernel route tokens == plain route's
+    cfg2 = get_config(MOE_ARCH).replace(n_layers=2, param_dtype="float32",
+                                        compute_dtype="float32")
+    params2 = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
+    small = [Request(i, p[:128], max_new_tokens=16) for i, p in enumerate(prompts[:4])]
+    fp32_tokens = {}
+    for use in (True, False):
+        eng = ServeEngine(Model(cfg2.replace(use_kernels=use)), params2,
+                          ServeConfig(batch=4, max_len=256, mode="wave"))
+        fp32_tokens[use] = {rid: r.tokens for rid, r in eng.serve(small).items()}
+    del params2, eng
+    torch.cuda.empty_cache()
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    kv_bytes = 2 * L * SERVE_BATCH * SERVE_MAX_LEN * cfg.n_kv * cfg.head_dim * 2
+    row = {"phase": "serve_moe", "arch": MOE_ARCH, "layers": L, "d_model": cfg.d_model,
+           "experts": m.n_experts, "top_k": m.top_k, "params": n_params,
+           "init_s": init_s, **runs, "peak_allocated_bytes": peak,
+           "card_bytes": card_bytes, "weights_bytes": 2 * n_params,
+           "kv_cache_bytes": kv_bytes, "profiled_wave": busy,
+           "moe_layer_kernel_vs_plain": layer, "kernel_vs_plain": route,
+           "fp32_2layer_tokens_equal": fp32_tokens[True] == fp32_tokens[False]}
+    emit(row)
+    c, w = runs["continuous"], runs["wave"]
+    if n_params != MOE_PARAMS:
+        fail(f"{MOE_ARCH} has {n_params} parameters, expected {MOE_PARAMS}")
+    if not (c["full_budgets"] and w["full_budgets"]):
+        fail("a MoE request did not get its full token budget")
+    per_step = 3 * L
+    if c["grouped_matmul_launches"] == 0 or c["grouped_matmul_launches"] % per_step:
+        fail(f"continuous MoE serve launched grouped_matmul {c['grouped_matmul_launches']} "
+             f"times, expected a positive multiple of {per_step}")
+    if c["flash_decode_launches"] == 0 or c["flash_decode_launches"] % L:
+        fail(f"continuous MoE serve launched flash_decode {c['flash_decode_launches']} "
+             f"times, expected a positive multiple of {L}")
+    expect = (per_step * MOE_WAVE_BUDGET, L, L * (MOE_WAVE_BUDGET - 1))
+    got = (w["grouped_matmul_launches"], w["flash_attention_launches"],
+           w["flash_decode_launches"])
+    if got != expect:
+        fail(f"wave MoE serve launched K6/K4/K3 {got} times, expected {expect}")
+    for name, r in layer.items():
+        if not (r["dest_keep_equal"] and r["finite"]) or r["y_rel_err"] > MOE_LAYER_REL_TOL:
+            fail(f"MoE layer ({name}): kernel route disagrees with the plain route: {r}")
+    if not route["finite"]:
+        fail(f"MoE logits are not finite: {route}")
+    if not row["fp32_2layer_tokens_equal"]:
+        fail("fp32 MoE kernel-route tokens differ from the plain route's")
+    return tuple(r[f"{k}_launches"] for k in ("grouped_matmul", "flash_attention",
+                                              "flash_decode") for r in (c, w))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
@@ -604,11 +861,15 @@ def main() -> int:
     peaks = PEAKS["pcie" if "pcie" in card.lower() else "sxm"]
     k1, k2 = phase_kernels(torch, peaks)
     k4, k3 = phase_attention_kernels(torch, peaks)
+    k6 = phase_gmm_kernel(torch, peaks)
     phase_listings(torch)
     k1_launches = phase_mandelbrot(torch)
     k2_launches = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
     k4_launches, k3_launches = phase_serve(torch)
+    k6c, k6w, k4c, k4w, k3c, k3w = phase_serve_moe(torch)
+    k4_launches += k4c + k4w
+    k3_launches += k3c + k3w
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card, "peaks": peaks})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -626,6 +887,9 @@ def main() -> int:
         {**k4, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
          "launches": k4_launches},
+        {**k6, "route": "cuda", "source": "src/repro_torch/csrc/grouped_matmul.cu",
+         "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:20",
+         "launches": k6c + k6w},
     ]
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

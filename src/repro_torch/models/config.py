@@ -1,8 +1,10 @@
 """Model configuration for all assigned architecture families.
 
 The port's own copy of the reference's dataclasses (pure Python).  One
-field differs: ``use_kernels`` takes the hand-written CUDA kernels where the
-reference's gate admits its Pallas kernels (the reference's ``use_pallas``).
+field differs: ``use_kernels`` (the reference's ``use_pallas``) takes the
+hand-written CUDA kernels where the reference's gate admits its Pallas
+kernels (flash attention K4, flash decode K3), and for the MoE expert GEMMs
+(grouped matmul K6, which the reference's MoE never calls).
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ class ModelConfig:
     attn_impl: str = "blockwise"
     attn_block_q: int = 512
     attn_block_kv: int = 1024
-    use_kernels: bool = False               # hand-written attention kernels
+    use_kernels: bool = False               # hand-written kernels: attention, expert GEMMs
 
     @property
     def head_dim(self) -> int:

@@ -23,10 +23,23 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+_DRAW_VALUES = 1 << 27      # fp32 values drawn at once, unless one slice is larger
+
+
 def normal_init(gen: torch.Generator, shape, dtype: torch.dtype,
                 std: float = 0.02) -> torch.Tensor:
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device,
-                        dtype=torch.float32) * std).to(dtype)
+    """N(0, std²) drawn in fp32 and rounded to ``dtype``, filled into the
+    leaf a run of leading-dim slices at a time (one slice, or as many as
+    hold 2^27 values): the fp32 draw never holds more than one such run.
+    Drawn whole, a stacked MoE leaf ([48, 64, 2048, 1408]: 35 GB of fp32)
+    would not fit on the card beside the weights."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    step = max(1, _DRAW_VALUES // out[0].numel())
+    for i in range(0, out.shape[0], step):
+        part = out[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
+                               dtype=torch.float32).mul_(std))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,10 @@ Batch dict keys (all optional per family):
   embeds      [B, S_front, D]         frontend-stub embeddings (vlm)
   enc_embeds  [B, S_enc, D]           encoder frontend embeddings (audio encdec)
 
-This slice ports the attention families (dense, vlm, encdec/audio).  The
-SSM and hybrid families (Mamba2 with its SSD-scan kernel K5) and the MoE
-family (with its grouped-matmul kernel K6) raise ``NotImplementedError``.
+The attention families (dense, vlm, encdec/audio) and the moe family (its
+expert GEMMs on the grouped-matmul kernel K6 under ``use_kernels``) are
+ported.  The SSM and hybrid families (Mamba2 with its SSD-scan kernel K5)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,8 +43,6 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(SSM_TODO.format(cfg.family))
-        if cfg.family == "moe":
-            raise NotImplementedError(transformer.MOE_TODO)
         self.cfg = cfg
         self.params: Optional[Dict[str, Any]] = None
 

@@ -6,7 +6,9 @@ them with ``lax.scan``; here a Python loop walks the stacked leaves, so every
 layer's window is a static int (gemma3's 5:1 local:global schedule included)
 and the attention kernels can engage on every layer their gate admits.  The
 reference's ``logical_constraint`` sharding hints and remat have no meaning
-on one card and are left out.  The MoE family waits for its slice.
+on one card and are left out.  The moe family's FFN is ``moe.moe_apply``
+(its expert GEMMs on the grouped-matmul kernel K6 under ``use_kernels``);
+``forward`` returns the sum of its per-layer aux losses, as the reference's.
 """
 from __future__ import annotations
 
@@ -20,9 +22,7 @@ from .attention import (Pos, _project, attn_apply, attn_init, init_kv_cache,
 from .config import ModelConfig
 from .layers import (Params, apply_rope, dtype_of, embed_apply, embed_init,
                      mlp_apply, mlp_init, normal_init, rms_norm, unembed_apply)
-
-MOE_TODO = ("the moe family (MoE FFN and its grouped-matmul kernel K6) is not "
-            "ported yet: ROADMAP.md item 13b, the MoE serve path")
+from .moe import moe_apply, moe_init
 
 
 def window_schedule(cfg: ModelConfig, n_layers: Optional[int] = None) -> np.ndarray:
@@ -46,15 +46,16 @@ def layer_params(stacked: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
                 cross: bool) -> Params:
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_TODO)
     dtype = dtype_of(cfg.param_dtype)
     p: Params = {
         "attn": attn_init(gen, cfg, n_layers),
         "norm1": torch.zeros(n_layers, cfg.d_model, dtype=dtype, device=gen.device),
         "norm2": torch.zeros(n_layers, cfg.d_model, dtype=dtype, device=gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, n_layers),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg, n_layers)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, n_layers)
     if cross:
         p["cross"] = attn_init(gen, cfg, n_layers)
         p["norm_cross"] = torch.zeros(n_layers, cfg.d_model, dtype=dtype,
@@ -80,15 +81,22 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN sublayer → (y, the MoE aux loss; None for a dense MLP, whose
+    aux is zero: no zero tensor is made per layer)."""
+    if cfg.family == "moe":
+        return moe_apply(p["moe"], x, cfg)
+    return mlp_apply(p["mlp"], x, cfg.act), None
+
+
 def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions, window: int,
            memory=None, cache=None, cache_pos: Optional[Pos] = None, causal=True,
            k_valid=None):
-    """Pre-norm transformer block; returns (x, new_cache).
+    """Pre-norm transformer block; returns (x, aux, new_cache).
 
     ``k_valid`` [B,Sk] masks left-pad key slots out of *self*-attention
     (cross-attention memory carries no pads)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_TODO)
     h, new_self = attn_apply(p["attn"], rms_norm(x, p["norm1"], cfg.rms_eps),
                              cfg, positions=positions, window=window,
                              cache=None if cache is None else cache[0],
@@ -102,18 +110,23 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions, window: i
             positions=positions, memory=memory, is_cross=True,
             cache=None if cache is None else cache[1])
         x = x + h
-    x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.rms_eps), cfg.act)
-    return x, None if cache is None else (new_self, new_cross)
+    h, aux = _ffn(p, rms_norm(x, p["norm2"], cfg.rms_eps), cfg)
+    x = x + h
+    return x, aux, None if cache is None else (new_self, new_cross)
 
 
 def _run_blocks(params_layers: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 windows: np.ndarray, positions, memory=None,
-                causal=True) -> torch.Tensor:
-    """Full-sequence pass (forward / encoder) over the stacked layers."""
+                causal=True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence pass (forward / encoder) over the stacked layers →
+    (x, the layers' aux losses summed in fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(windows):
-        x, _ = _block(layer_params(params_layers, i), x, cfg, positions=positions,
-                      window=int(window), memory=memory, causal=causal)
-    return x
+        x, a, _ = _block(layer_params(params_layers, i), x, cfg, positions=positions,
+                         window=int(window), memory=memory, causal=causal)
+        if a is not None:
+            aux = aux + a.to(torch.float32)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -135,10 +148,10 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.
     """Bidirectional encoder over frontend embeddings (enc-dec archs)."""
     x = enc_embeds.to(dtype_of(cfg.compute_dtype))
     S = x.shape[1]
-    x = _run_blocks(params["enc_layers"], x, cfg,
-                    windows=np.zeros(cfg.encoder_layers, np.int32),
-                    positions=torch.arange(S, dtype=torch.int32, device=x.device),
-                    causal=False)
+    x, _ = _run_blocks(params["enc_layers"], x, cfg,
+                       windows=np.zeros(cfg.encoder_layers, np.int32),
+                       positions=torch.arange(S, dtype=torch.int32, device=x.device),
+                       causal=False)
     return rms_norm(x, params["enc_final_norm"], cfg.rms_eps)
 
 
@@ -152,7 +165,7 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: Optional[torch.Tensor] 
             embeds: Optional[torch.Tensor] = None,
             enc_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits [B,S,V], moe_aux = 0)."""
+    """Full-sequence forward → (logits [B,S,V], moe_aux)."""
     memory = None
     if cfg.is_encdec:
         if enc_embeds is None:
@@ -160,10 +173,10 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: Optional[torch.Tensor] 
         memory = encode(params, cfg, enc_embeds)
     x = _input_embeds(params, cfg, tokens, embeds)
     S = x.shape[1]
-    x = _run_blocks(params["layers"], x, cfg, windows=window_schedule(cfg),
-                    positions=torch.arange(S, dtype=torch.int32, device=x.device),
-                    memory=memory)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux = _run_blocks(params["layers"], x, cfg, windows=window_schedule(cfg),
+                         positions=torch.arange(S, dtype=torch.int32, device=x.device),
+                         memory=memory)
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +241,8 @@ def prefill(params: Params, cfg: ModelConfig, *, tokens=None, embeds=None,
         vproj = _project(lp["attn"], normed, "wv", "bv", cfg.n_kv, cfg.head_dim)
         cache_k[i, :, :S] = kproj.to(cache_k.dtype)
         cache_v[i, :, :S] = vproj.to(cache_v.dtype)
-        x, _ = _block(lp, x, cfg, positions=positions, window=int(window),
-                      memory=memory, k_valid=k_valid)
+        x, _, _ = _block(lp, x, cfg, positions=positions, window=int(window),
+                         memory=memory, k_valid=k_valid)
     logits = _logits(params, cfg, x[:, -1:])
     cross = _cross_cache(params, cfg, memory) if cfg.is_encdec else None
     return logits, ((cache_k, cache_v), cross), S
@@ -267,7 +280,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor, cache,
     for i, window in enumerate(window_schedule(cfg)):
         layer_cache = ((cache_k[i], cache_v[i]),
                        None if cross is None else (cross[0][i], cross[1][i]))
-        x, _ = _block(layer_params(params["layers"], i), x, cfg,
-                      positions=positions, window=int(window), cache=layer_cache,
-                      cache_pos=pos, k_valid=k_valid)
+        x, _, _ = _block(layer_params(params["layers"], i), x, cfg,
+                         positions=positions, window=int(window), cache=layer_cache,
+                         cache_pos=pos, k_valid=k_valid)
     return _logits(params, cfg, x), cache

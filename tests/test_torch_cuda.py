@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the BOTS workloads and the LM server launching them end to end.
+version, and the BOTS workloads and the LM server (dense and MoE) launching
+them end to end.
 
 Every test here needs a card and is marked ``cuda``; whether a card is
 present is decided inside the fixture, so every worker collects the same
@@ -24,10 +25,14 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_decode import flash_decode as k3
 from repro_torch.kernels.flash_decode.ops import gqa_flash_decode
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.grouped_matmul import grouped_matmul as k6
+from repro_torch.kernels.grouped_matmul.ops import expert_ffn_matmul
+from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.kernels.mandelbrot import mandelbrot as k1
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_rows
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
 from repro_torch.models import Model
+from repro_torch.models.moe import moe_apply
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -158,5 +163,70 @@ def test_two_layer_serve_launches_both_kernels(cuda_device):
         tokens[use] = {rid: r.tokens for rid, r in eng.serve(reqs).items()}
         launched = (k4.launches.count - before[0], k3.launches.count - before[1])
         assert launched == ((2, 2 * 7) if use else (0, 0))
+    assert tokens[True] == tokens[False]
+    assert all(len(t) == 8 for t in tokens[True].values())
+
+
+@pytest.mark.parametrize("E,C,D,F", [(64, 240, 2048, 1408), (64, 1, 2048, 1408),
+                                     (64, 240, 1408, 2048), (3, 3, 96, 100)])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-4, 1e-3),
+                                             (torch.bfloat16, 3e-2, 3e-1)])
+def test_grouped_matmul_cuda_matches_plain(cuda_device, E, C, D, F, dtype, rtol, atol):
+    """K6 at the moonshot serve path's shapes (prefill C = 240, decode C = 1,
+    the down projection) and a ragged one; tolerances of
+    ``tests/test_kernels.py:138-140``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(E + C + D + F)
+    x = torch.randn(E, C, D, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(E, D, F, generator=gen, device=cuda_device).to(dtype)
+    before = k6.launches.count
+    out = expert_ffn_matmul(x, w)
+    torch.cuda.synchronize()
+    assert k6.launches.count == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (E, C, F)
+    torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w).float(),
+                               rtol=rtol, atol=atol)
+
+
+def _moe_cfg():
+    """moonshot's smoke config with a head dim the attention kernels take."""
+    return get_smoke_config("moonshot-v1-16b-a3b").replace(
+        d_head=64, param_dtype="float32", compute_dtype="float32")
+
+
+def test_moe_layer_never_waits_for_the_card(cuda_device):
+    """A decode-sized and a prefill-sized MoE layer on the kernel route
+    make no host synchronization (the decode step is host-bound)."""
+    cfg = _moe_cfg().replace(use_kernels=True)
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    for shape in ((4, 1, cfg.d_model), (2, 16, cfg.d_model)):
+        x = torch.randn(*shape, device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_apply(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(y).all() and torch.isfinite(aux)
+
+
+def test_two_layer_moe_serve_launches_the_kernels(cuda_device):
+    """A 2-layer MoE model served in wave mode with equal prompts: K6 three
+    times per layer in the prefill and in every decode, K4 once per layer,
+    K3 once per layer per decode; its fp32 tokens equal the plain route's."""
+    cfg = _moe_cfg()
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(1, cfg.vocab, 16).tolist(), max_new_tokens=8)
+            for i in range(3)]
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = {}
+    for use in (True, False):
+        model = Model(cfg.replace(use_kernels=use))
+        before = (k6.launches.count, k4.launches.count, k3.launches.count)
+        eng = ServeEngine(model, params, ServeConfig(batch=3, max_len=32, mode="wave"))
+        tokens[use] = {rid: r.tokens for rid, r in eng.serve(reqs).items()}
+        launched = (k6.launches.count - before[0], k4.launches.count - before[1],
+                    k3.launches.count - before[2])
+        assert launched == ((3 * 2 * 8, 2, 2 * 7) if use else (0, 0, 0))
     assert tokens[True] == tokens[False]
     assert all(len(t) == 8 for t in tokens[True].values())

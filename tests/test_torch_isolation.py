@@ -36,22 +36,50 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_package_imports_without_jax():
-    modules = []
+def _modules():
+    out = []
     for p in sorted(PKG.rglob("*.py")):
         parts = p.relative_to(PKG.parent).with_suffix("").parts
-        modules.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+        out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return out
+
+
+def _run(code: str):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_package_imports_without_jax():
+    modules = _modules()
     code = ("import importlib, sys\n"
             "for name in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "print(len(sys.modules))\n")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
-                         capture_output=True, text=True, timeout=300)
+    out = _run(code)
     assert out.returncode == 0, out.stderr
     assert len(modules) >= 20
+
+
+def test_kernel_modules_build_nothing_at_import():
+    """Every module imports, the kernel launchers and the MoE model
+    included, without building or loading a kernel: that waits for the
+    first launch on the card."""
+    modules = _modules()
+    assert "repro_torch.kernels.grouped_matmul.grouped_matmul" in modules
+    assert "repro_torch.models.moe" in modules
+    code = ("import importlib\n"
+            "from repro_torch.kernels import _build\n"
+            "def refuse(*args, **kwargs):\n"
+            "    raise AssertionError('a kernel was built or loaded at import')\n"
+            "_build.build = _build.library = refuse\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not _build._libs\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture

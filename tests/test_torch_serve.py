@@ -66,13 +66,16 @@ def _tokens(results):
 
 
 @pytest.mark.parametrize("arch,mode", [
-    (arch, mode) for arch in ("minitron-4b", "qwen2-72b", "gemma3-4b")
+    (arch, mode) for arch in ("minitron-4b", "qwen2-72b", "gemma3-4b", "kimi-k2-1t-a32b")
     for mode in ("continuous", "wave")] + [
-    ("internvl2-2b", "continuous"), ("seamless-m4t-large-v2", "wave")])
+    ("internvl2-2b", "continuous"), ("seamless-m4t-large-v2", "wave"),
+    ("moonshot-v1-16b-a3b", "wave")])
 def test_greedy_tokens_match_reference(arch, mode):
     """Ragged prompts through two slots / waves of two; the vlm and enc-dec
     frontends in one mode each (their logits are held in
-    ``test_torch_models.py``)."""
+    ``test_torch_models.py``); the MoE family (logits held in
+    ``test_torch_moe.py``): kimi in both modes, and moonshot, whose smoke
+    model repeats one token per request, in one."""
     vocab = _pair(arch)[2].cfg.vocab
     reqs = [Request(i, p, max_new_tokens=n) for i, p, n in _requests(vocab)]
     got = _tokens(_port(arch, mode, reqs))
