@@ -18,7 +18,9 @@ runs, printing one JSON line per phase:
    mandelbrot and bmod, then flash attention (4 sequences x 24 heads over
    8 kv heads, 512 causal rows, d = 128; also a window, a ragged Sq and
    d = 256) and flash decode (32 kv rows x 3 query heads over a 1024-row
-   cache with per-row kv_len from 0 to 1024; also d = 256), fp32 and bf16;
+   cache with per-row kv_len from 0 to 1024; also d = 256), fp32 and bf16,
+   and both at zamba2-2.7b's shared-block shapes (32 heads of d = 80, timed
+   beside SDPA too);
 3. the paper's Listings 1–2 on 8 virtual devices;
 4. BOTS mandelbrot at the paper's 4600 x 4600 image, max_iter 300:
    ``offload_strips`` on 8 virtual devices against the one-region serial
@@ -43,12 +45,26 @@ runs, printing one JSON line per phase:
    route: one MoE layer (routing equal, outputs close), full-depth logits
    (reported, not gated: a routing flip between near-tied experts is a
    legitimate difference) and a 2-layer fp32 model whose greedy tokens must
-   be equal on both routes.
+   be equal on both routes;
+8. SSM and hybrid serving: zamba2-2.7b at full width and depth (54 Mamba2
+   layers, one shared attention block run 9 times, 2.34 B parameters,
+   bf16, random weights from seed 0) with the kernels on: 8 requests of
+   ragged length (512, 509, 384, 300, two of each) in continuous mode
+   (exact-length prefills: the SSD-scan kernel in every Mamba2 layer, its
+   masked tail included, flash attention in every shared block; flash
+   decode in every shared block of every decode), then 4 x 512 in wave
+   mode; the kernel route against the plain route (prefill and decode
+   logits), and a full-width fp32 model of one group (6 layers) whose
+   greedy tokens must be equal on both routes; then mamba2-130m at its full
+   config (24 layers, N = 128), one continuous and one wave run, its fp32
+   greedy tokens equal on both routes.
 
 Phase 2 also holds the grouped-matmul kernel against its plain version at
-the MoE path's shapes, beside ``torch.bmm`` as the library yardstick.
-Phases 4 to 7 then run a workload once more under ``torch.profiler`` and
-report the card's busy share of that run.
+the MoE path's shapes, beside ``torch.bmm`` as the library yardstick, and
+the SSD-scan kernel against its plain version at the state serve paths'
+prefill shapes (zamba2's, mamba2's, a ragged S, two groups).  Phases 4 to 8
+then run a workload once more under ``torch.profiler`` and report the
+card's busy share of that run.
 
 Every kernel's launch count is set to 0 just before a main-path phase and
 read just after; a kernel of the path that did not launch fails the run.
@@ -104,6 +120,38 @@ MOE_WAVE_BUDGET = 16
 # one MoE layer, kernel route against plain route (bf16): both accumulate
 # in fp32 and round once, so outputs differ by a bf16 ulp here and there
 MOE_LAYER_REL_TOL = 1e-2
+# zamba2-2.7b's shared attention block: 32 heads (MHA) of d = 80
+ATTN_D80 = (4, 32, 1, 512, 80)          # K4: (B, K, r, Sq = Skv, d)
+DECODE_D80 = (128, 1, 1024, 80)         # K3: (B·K, r, S, d)
+# K5 at the state serve paths' prefill shapes (b, S, H, P, G, N, the model's
+# chunk): zamba2-2.7b's, mamba2-130m's (N = 128), a ragged S (continuous
+# mode prefills exact lengths) and two groups
+SSD_SHAPES = ((4, 512, 80, 64, 1, 64, 256), (4, 512, 24, 64, 1, 128, 256),
+              (4, 509, 80, 64, 1, 64, 256), (2, 300, 8, 64, 2, 64, 256))
+# K5 against its plain version.  fp32: elementwise 1e-3 (the plain version's
+# 256-step cumsums reach ~200, whose ulp moves each decay exp(cum_i - cum_j)
+# by ~1e-5 relative; the kernel sums 64-step chunks).  bf16: the plain
+# version rounds the state entering each chunk to bf16 before the
+# inter-chunk term (the reference's ssm.py:111) and the kernel keeps it in
+# fp32, so y is held by relative L2 (1e-2: two bf16 roundings of ~2^-9 each)
+# against it, and elementwise (4e-2) against the plain version on fp32
+# upcasts of the same inputs rounded once to bf16 (the kernel's own
+# arithmetic); the fp32 final state elementwise (4e-2) against both.
+SSD_TOL = {"fp32": 1e-3, "bf16_rel_l2": 1e-2, "bf16": 4e-2}
+HYBRID_ARCH, HYBRID_PARAMS = "zamba2-2.7b", 2_340_750_240
+SSM_ARCH, SSM_PARAMS = "mamba2-130m", 128_983_488
+STATE_LENS = (512, 509, 384, 300)       # continuous prompts, cycled over 8 requests
+STATE_BUDGETS = (16, 24, 32, 20)        # max_new_tokens, cycled over the requests
+STATE_WAVE_BUDGET = 32
+# the state serve phases' bf16 kernel route against the plain route: each
+# route's logits are held by relative L2 against the plain route run in fp32
+# on the same weights upcast, and the kernel route may stand at most this much
+# further from it than the plain route does.  bf16 rounding alone puts both
+# ~4.8e-2 (zamba2-2.7b) and ~2.2e-2 (mamba2-130m) from fp32; on the H100 the
+# kernel route stood 1.5e-4 further (zamba2 prefill) and up to 7.6e-4 nearer
+# (mamba2), so 2e-3 is ~13x the largest reading.  LOGITS_REL_TOL stays as a
+# backstop on the two bf16 routes' direct distance.
+STATE_FP32_MARGIN = 2e-3
 
 
 def emit(obj) -> None:
@@ -279,11 +327,57 @@ def _model_layout(o, B: int, K: int):
     return o.reshape(B, K, r, S, d).permute(0, 3, 1, 2, 4).reshape(B, S, K * r, d)
 
 
-def phase_attention_kernels(torch, peaks):
-    """K4 and K3 against their plain versions at the serve path's shapes
-    (minitron-4b: 8 kv heads, r = 3, d = 128), plus a window, a ragged Sq
-    and d = 256 for K4 and d = 256 for K3, in fp32 and bf16."""
+def _k4_timing(torch, peaks, q, k, v, err):
+    """K4's time, its plain version's, SDPA's and the bound, on bf16 q, k, v."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, S, H, d = q.shape
+    K = k.shape[2]
+    qk, kk, vk = _kernel_layout(q, k, v)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = B * H * S * (S + 1) // 2                  # unmasked (query, key) pairs
+    bound, by = bound_ms(peaks, 2 * (2 * q.numel() + 2 * k.numel()), 4 * d * pairs,
+                         "bf16_flops")
+    return {"shape": {"B": B, "Sq": S, "H": H, "K": K, "d": d, "causal": True,
+                      "dtype": "bfloat16"},
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: gqa_flash_attention(q, k, v, causal=True), 20),
+            "plain_ms": time_ms(torch, lambda: flash_attention_ref(qk, kk, vk, causal=True), 3),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), 20),
+            "bound_ms": bound, "bound_by": by}
+
+
+def _k3_timing(torch, peaks, q, kc, vc, lens, err):
+    """K3's time, its plain version's, SDPA's (bool mask) and the bound, on
+    bf16 q [BK, r, d] and caches [BK, S, d] with per-row ``lens``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    BK, r, d = q.shape
+    S = kc.shape[1]
+    k4d, v4d = kc[:, :, None], vc[:, :, None]
+    rows = sum(min(n, S) if n > 0 else S for n in lens.tolist())   # cache rows needed
+    bound, by = bound_ms(peaks, 2 * (2 * rows * d + 2 * q.numel()) + 4 * BK,
+                         4 * d * r * rows, "bf16_flops")
+    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    q4, kl, vl = q[:, :, None], kc[:, None], vc[:, None]
+    return {"shape": {"BK": BK, "r": r, "S": S, "d": d, "kv_len": lens.tolist(),
+                      "dtype": "bfloat16"},
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: flash_decode_cuda(q, k4d, v4d, lens), 200),
+            "plain_ms": time_ms(torch, lambda: flash_decode_ref(q, kc, vc, lens), 20),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kl, vl, attn_mask=mask, enable_gqa=True), 200),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_attention_kernels(torch, peaks):
+    """K4 and K3 against their plain versions at the serve paths' shapes
+    (minitron-4b: 8 kv heads, r = 3, d = 128; zamba2-2.7b's shared block:
+    32 heads, r = 1, d = 80), plus a window, a ragged Sq and d = 256 for K4
+    and d = 256 for K3, in fp32 and bf16."""
     from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda
@@ -295,80 +389,76 @@ def phase_attention_kernels(torch, peaks):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
+    def k4_cases(B, K, r, plan):
+        cases, main = [], None
+        for (Sq, dd, window) in plan:
+            for dtype, tol in dtypes:
+                q = randn(B, Sq, K * r, dd, dtype=dtype)
+                k, v = randn(B, Sq, K, dd, dtype=dtype), randn(B, Sq, K, dd, dtype=dtype)
+                out = gqa_flash_attention(q, k, v, causal=True, window=window)
+                torch.cuda.synchronize()
+                ref = _model_layout(flash_attention_ref(*_kernel_layout(q, k, v), causal=True,
+                                                        window=window), B, K)
+                err = float((out.float() - ref.float()).abs().max())
+                cases.append({"Sq": Sq, "d": dd, "window": window, "dtype": str(dtype),
+                              "max_abs_err": err, "tolerance": tol,
+                              "pass": bool(torch.allclose(out.float(), ref.float(),
+                                                          rtol=tol, atol=tol))})
+                if (Sq, dd, window, dtype) == (*plan[0], torch.bfloat16):
+                    main = (q, k, v, err)
+        return cases, main
+
+    def k3_cases(BK, r, S, dims, lens):
+        cases, main = [], None
+        for dd in dims:
+            for dtype, tol in dtypes:
+                q = randn(BK, r, dd, dtype=dtype)
+                kc, vc = randn(BK, S, dd, dtype=dtype), randn(BK, S, dd, dtype=dtype)
+                # the kernel's [BK, S, d] form: K = 1 kv head per row, per-row kv_len
+                out = flash_decode_cuda(q, kc[:, :, None], vc[:, :, None], lens)
+                torch.cuda.synchronize()
+                ref = flash_decode_ref(q, kc, vc, lens)
+                err = float((out.float() - ref.float()).abs().max())
+                cases.append({"BK": BK, "r": r, "S": S, "d": dd, "dtype": str(dtype),
+                              "max_abs_err": err, "tolerance": tol,
+                              "pass": bool(torch.allclose(out.float(), ref.float(),
+                                                          rtol=tol, atol=tol))})
+                if (dd, dtype) == (dims[0], torch.bfloat16):
+                    main = (q, kc, vc, err)
+        return cases, main
+
     dtypes = ((torch.float32, 1e-4), (torch.bfloat16, 4e-2))
     B, K, r, S, d = ATTN_MAIN
-    cases, main = [], None
-    for (Sq, dd, window) in ((S, d, 0), (S, d, 128), (200, d, 0), (S, 256, 0)):
-        for dtype, tol in dtypes:
-            q = randn(B, Sq, K * r, dd, dtype=dtype)
-            k, v = randn(B, Sq, K, dd, dtype=dtype), randn(B, Sq, K, dd, dtype=dtype)
-            out = gqa_flash_attention(q, k, v, causal=True, window=window)
-            torch.cuda.synchronize()
-            ref = _model_layout(flash_attention_ref(*_kernel_layout(q, k, v), causal=True,
-                                                    window=window), B, K)
-            err = float((out.float() - ref.float()).abs().max())
-            cases.append({"Sq": Sq, "d": dd, "window": window, "dtype": str(dtype),
-                          "max_abs_err": err, "tolerance": tol,
-                          "pass": bool(torch.allclose(out.float(), ref.float(),
-                                                      rtol=tol, atol=tol))})
-            if (Sq, dd, window, dtype) == (S, d, 0, torch.bfloat16):
-                main = (q, k, v, err)
-    q, k, v, err = main
-    qk, kk, vk = _kernel_layout(q, k, v)
-    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = B * K * r * S * (S + 1) // 2              # unmasked (query, key) pairs
-    k4_bound, k4_by = bound_ms(peaks, 2 * (2 * q.numel() + 2 * k.numel()),
-                               4 * d * pairs, "bf16_flops")
-    k4 = {"name": "flash_attention", "shape": {"B": B, "Sq": S, "H": K * r, "K": K, "d": d,
-                                               "causal": True, "dtype": "bfloat16"},
-          "cases": cases, "max_abs_err": err,
-          "ms": time_ms(torch, lambda: gqa_flash_attention(q, k, v, causal=True), 20),
-          "plain_ms": time_ms(torch, lambda: flash_attention_ref(qk, kk, vk, causal=True), 3),
-          "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-              qs, ks, vs, is_causal=True, enable_gqa=True), 20),
-          "bound_ms": k4_bound, "bound_by": k4_by,
-          "pass": all(c["pass"] for c in cases)}
+    cases, (q, k, v, err) = k4_cases(B, K, r, ((S, d, 0), (S, d, 128), (200, d, 0),
+                                               (S, 256, 0)))
+    k4 = {"name": "flash_attention", **_k4_timing(torch, peaks, q, k, v, err),
+          "cases": cases}
+    B, K, r, S, d = ATTN_D80
+    cases80, (q, k, v, err) = k4_cases(B, K, r, ((S, d, 0),))
+    k4["d80"] = {**_k4_timing(torch, peaks, q, k, v, err), "cases": cases80}
+    del q, k, v
+    k4["pass"] = all(c["pass"] for c in cases + cases80)
     emit({"phase": "kernel_check", **k4})
 
     BK, r, S, d = DECODE_MAIN
     lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
-    cases, main = [], None
-    for dd in (d, 256):
-        for dtype, tol in dtypes:
-            q = randn(BK, r, dd, dtype=dtype)
-            kc, vc = randn(BK, S, dd, dtype=dtype), randn(BK, S, dd, dtype=dtype)
-            # the kernel's [BK, S, d] form: K = 1 kv head per row, per-row kv_len
-            out = flash_decode_cuda(q, kc[:, :, None], vc[:, :, None], lens)
-            torch.cuda.synchronize()
-            ref = flash_decode_ref(q, kc, vc, lens)
-            err = float((out.float() - ref.float()).abs().max())
-            cases.append({"BK": BK, "r": r, "S": S, "d": dd, "dtype": str(dtype),
-                          "max_abs_err": err, "tolerance": tol,
-                          "pass": bool(torch.allclose(out.float(), ref.float(),
-                                                      rtol=tol, atol=tol))})
-            if (dd, dtype) == (d, torch.bfloat16):
-                main = (q, kc, vc, err)
-    q, kc, vc, err = main
-    k4d, v4d = kc[:, :, None], vc[:, :, None]
-    rows = sum(min(n, S) if n > 0 else S for n in DECODE_LENS)   # cache rows needed
-    k3_bound, k3_by = bound_ms(peaks, 2 * (2 * rows * d + 2 * q.numel()) + 4 * BK,
-                               4 * d * r * rows, "bf16_flops")
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    q4, kl, vl = q[:, :, None], kc[:, None], vc[:, None]
-    k3 = {"name": "flash_decode", "shape": {"BK": BK, "r": r, "S": S, "d": d,
-                                            "kv_len": DECODE_LENS, "dtype": "bfloat16"},
-          "cases": cases, "max_abs_err": err,
-          "ms": time_ms(torch, lambda: flash_decode_cuda(q, k4d, v4d, lens), 200),
-          "plain_ms": time_ms(torch, lambda: flash_decode_ref(q, kc, vc, lens), 20),
-          "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-              q4, kl, vl, attn_mask=mask, enable_gqa=True), 200),
-          "bound_ms": k3_bound, "bound_by": k3_by,
-          "pass": all(c["pass"] for c in cases)}
+    cases, (q, kc, vc, err) = k3_cases(BK, r, S, (d, 256), lens)
+    k3 = {"name": "flash_decode", **_k3_timing(torch, peaks, q, kc, vc, lens, err),
+          "cases": cases}
+    BK, r, S, d = DECODE_D80
+    # zamba2's decode fills: rows of 4 sequences x 32 heads at spread lengths
+    lens80 = torch.tensor([(8 * i + 1) % (S + 1) for i in range(BK)], dtype=torch.int32,
+                          device=dev)
+    cases80, (q, kc, vc, err) = k3_cases(BK, r, S, (d,), lens80)
+    k3["d80"] = {**_k3_timing(torch, peaks, q, kc, vc, lens80, err), "cases": cases80}
+    k3["pass"] = all(c["pass"] for c in cases + cases80)
     emit({"phase": "kernel_check", **k3})
     if not k4["pass"]:
-        fail(f"flash_attention kernel disagrees with its plain version: {k4['cases']}")
+        fail(f"flash_attention kernel disagrees with its plain version: "
+             f"{k4['cases'] + k4['d80']['cases']}")
     if not k3["pass"]:
-        fail(f"flash_decode kernel disagrees with its plain version: {k3['cases']}")
+        fail(f"flash_decode kernel disagrees with its plain version: "
+             f"{k3['cases'] + k3['d80']['cases']}")
     return k4, k3
 
 
@@ -426,6 +516,97 @@ def phase_gmm_kernel(torch, peaks):
     if not k6["pass"]:
         fail(f"grouped_matmul kernel disagrees with its plain version: {cases}")
     return k6
+
+
+def _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype):
+    """x, B, C as the Mamba2 mixer hands them to K5: slices of one [b, S,
+    H·P + 2·G·N] projection, read in place with its strides; dt =
+    softplus(randn), A = -exp(0.3 randn), as the reference's own test
+    (tests/test_kernels.py:82-87) draws them."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    xbc = torch.randn(b, S, H * P + 2 * G * N, generator=gen, device=dev).to(dtype)
+    x, B, C = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    dt = F.softplus(torch.randn(b, S, H, generator=gen, device=dev))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device=dev))
+    return x.reshape(b, S, H, P), dt, A, B.reshape(b, S, G, N), C.reshape(b, S, G, N)
+
+
+def phase_ssd_kernel(torch, peaks):
+    """K5 against its plain version at the state serve paths' prefill
+    shapes, fp32 and bf16, with its time, the plain version's and its bound
+    at zamba2's and mamba2's shapes (bf16).  No single PyTorch call computes
+    the SSD scan, so there is no library time."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as k5mod
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK, ssd_scan_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k5mod.launches.reset()
+    cases, timed = [], []
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    for shape in SSD_SHAPES:
+        b, S, H, P, G, N, chunk = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype)
+            y, h = ssd_scan_cuda(*args)
+            torch.cuda.synchronize()
+            yp, hp = ssd_chunked(*args, chunk=chunk)
+            case = {"b": b, "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": chunk,
+                    "dtype": str(dtype), "max_abs_err": float((y.float() - yp.float()).abs().max()),
+                    "h_max_abs_err": float((h - hp).abs().max()),
+                    "y_rel_l2": rel(y, yp), "finite": bool(torch.isfinite(y).all())}
+            if dtype == torch.float32:
+                tol = SSD_TOL["fp32"]
+                ok = (torch.allclose(y, yp, rtol=tol, atol=tol)
+                      and torch.allclose(h, hp, rtol=tol, atol=tol))
+            else:
+                tol = SSD_TOL["bf16"]
+                y32, h32 = ssd_chunked(*(t.float() for t in args), chunk=chunk)
+                own = y32.to(dtype).float()
+                case["own_max_abs_err"] = float((y.float() - own).abs().max())
+                ok = (case["y_rel_l2"] <= SSD_TOL["bf16_rel_l2"]
+                      and torch.allclose(y.float(), own, rtol=tol, atol=tol)
+                      and torch.allclose(h, hp, rtol=tol, atol=tol)
+                      and torch.allclose(h, h32, rtol=tol, atol=tol))
+                del y32, h32, own
+                if shape in SSD_SHAPES[:2]:
+                    timed.append((shape, args, case["max_abs_err"]))
+            case["pass"] = bool(ok) and case["finite"]
+            cases.append(case)
+            del y, h, yp, hp
+    check_launches = k5mod.launches.count
+    timings = []
+    for (b, S, H, P, G, N, chunk), args, err in timed:
+        es = 2                                       # bf16
+        nbytes = (2 * b * S * H * P * es + b * H * N * P * 4 + b * S * H * 4
+                  + 2 * b * S * G * N * es + H * 4)
+        flops = 0                                    # the kernel's chunking, causal half
+        for c0 in range(0, S, CHUNK):
+            q = min(CHUNK, S - c0)
+            flops += 2 * b * H * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P)
+        bound, by = bound_ms(peaks, nbytes, flops, "bf16_flops")
+        timings.append({"b": b, "S": S, "H": H, "P": P, "G": G, "N": N, "dtype": "bfloat16",
+                        "max_abs_err": err, "bytes": nbytes, "flops": flops,
+                        "ms": time_ms(torch, lambda: ssd_scan_cuda(*args), 20),
+                        "plain_ms": time_ms(torch, lambda: ssd_chunked(*args, chunk=chunk), 2),
+                        "library_ms": None, "bound_ms": bound, "bound_by": by})
+    del timed
+    torch.cuda.empty_cache()
+    main = timings[0]                     # zamba2-2.7b's prefill
+    k5 = {"name": "ssd_scan", "kernel_chunk": CHUNK, "tolerance": SSD_TOL, "cases": cases,
+          "timings": timings, "check_launches": check_launches,
+          "shape": {k: main[k] for k in ("b", "S", "H", "P", "G", "N", "dtype")},
+          **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")},
+          "pass": all(c["pass"] for c in cases)}
+    emit({"phase": "kernel_check", **k5})
+    if not k5["pass"]:
+        fail(f"ssd_scan kernel disagrees with its plain version: {cases}")
+    return k5
 
 
 def phase_listings(torch):
@@ -838,6 +1019,173 @@ def phase_serve_moe(torch):
                                               "flash_decode") for r in (c, w))
 
 
+def phase_serve_state(torch, arch: str, expect_params: int):
+    """``arch`` (zamba2-2.7b: hybrid; mamba2-130m: ssm) at full width and
+    depth (bf16, random weights from seed 0) served with the kernels:
+    continuous mode over ragged prompts (exact-length prefill groups), then
+    wave mode, each with the launch counts set to 0 just before and read
+    just after; then the kernel route against the plain route (prefill and
+    decode logits) and fp32 greedy tokens on both routes (the hybrid: one
+    group of 6 layers at full width; the ssm: its full config)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as k4mod
+    from repro_torch.kernels.flash_decode import flash_decode as k3mod
+    from repro_torch.kernels.ssd_scan import ssd_scan as k5mod
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    mods = (k5mod, k4mod, k3mod)
+    cfg = get_config(arch).replace(use_kernels=True)
+    hybrid = cfg.family == "hybrid"
+    L = cfg.n_layers
+    G = L // cfg.hybrid_group if hybrid else 0       # shared-block runs per pass
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, STATE_LENS[i % len(STATE_LENS)]).tolist()
+               for i in range(8)]
+    reqs = [Request(i, p, max_new_tokens=STATE_BUDGETS[i % len(STATE_BUDGETS)])
+            for i, p in enumerate(prompts)]
+    wave_prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).tolist() for _ in range(4)]
+    wave_reqs = [Request(i, p, max_new_tokens=STATE_WAVE_BUDGET)
+                 for i, p in enumerate(wave_prompts)]
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for mode, rs in (("continuous", reqs), ("wave", wave_reqs)):
+        eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                                                     mode=mode))
+        for m in mods:
+            m.launches.reset()
+        t0 = time.perf_counter()
+        res = eng.serve(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5n, k4n, k3n = (m.launches.count for m in mods)
+        tokens = sum(len(r.tokens) for r in res.values())
+        runs[mode] = {
+            "requests": len(rs), "wall_s": wall, "new_tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "prefill_s": sum(r.prefill_s for r in res.values()),
+            "decode_s": sum(r.decode_s for r in res.values()),
+            "ssd_scan_launches": k5n, "flash_attention_launches": k4n,
+            "flash_decode_launches": k3n,
+            "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
+                                and not res[r.rid].timed_out for r in rs)}
+        if mode == "wave":
+            wave_engine = eng
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_busy(torch, lambda: wave_engine.serve(wave_reqs))
+    del wave_engine, eng
+
+    # kernel route against plain route on the same weights
+    plain = Model(cfg.replace(use_kernels=False))
+    batch = {"tokens": torch.tensor(wave_prompts, dtype=torch.int32, device="cuda")}
+    lk, ck, pos = model.prefill(params, batch, cache_len=SERVE_MAX_LEN)
+    lp, cp, _ = plain.prefill(params, batch, cache_len=SERVE_MAX_LEN)
+    tok = torch.argmax(lp[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+    dk, _ = model.decode_step(params, tok, ck, pos)
+    dp, _ = plain.decode_step(params, tok, cp, pos)
+    del ck, cp
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    route = {"prefill_rel_err": rel(lk, lp), "decode_rel_err": rel(dk, dp),
+             "prefill_max_abs_err": float((lk.float() - lp.float()).abs().max()),
+             "decode_max_abs_err": float((dk.float() - dp.float()).abs().max()),
+             "argmax_agree": float((dk.argmax(-1) == dp.argmax(-1)).float().mean()),
+             "tolerance_rel": LOGITS_REL_TOL,
+             "finite": bool(torch.isfinite(lk).all() and torch.isfinite(dk).all())}
+    # each bf16 route against the plain route in fp32 on the same weights
+    # upcast (how far bf16 rounding alone carries the logits through this
+    # depth); gated by STATE_FP32_MARGIN below
+    ref = Model(cfg.replace(param_dtype="float32", compute_dtype="float32",
+                            use_kernels=False))
+    params32 = _to_float(params)
+    l32, c32, _ = ref.prefill(params32, batch, cache_len=SERVE_MAX_LEN)
+    d32, _ = ref.decode_step(params32, tok, c32, pos)
+    route["vs_fp32_plain"] = {"prefill": {"kernel": rel(lk, l32), "plain": rel(lp, l32)},
+                              "decode": {"kernel": rel(dk, d32), "plain": rel(dp, d32)},
+                              "margin": STATE_FP32_MARGIN}
+    del params, model, plain, params32, c32
+    torch.cuda.empty_cache()
+
+    # fp32: kernel route tokens == plain route's, both modes
+    cfg32 = get_config(arch).replace(param_dtype="float32", compute_dtype="float32")
+    if hybrid:
+        cfg32 = cfg32.replace(n_layers=cfg.hybrid_group)
+    params32 = Model(cfg32).init(torch.Generator("cuda").manual_seed(0))
+    fp32_equal = {}
+    for mode, rs in (("wave", wave_reqs), ("continuous", reqs)):
+        rs16 = [Request(r.rid, r.prompt, max_new_tokens=16) for r in rs]
+        got = {}
+        for use in (True, False):
+            eng = ServeEngine(Model(cfg32.replace(use_kernels=use)), params32,
+                              ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, mode=mode))
+            got[use] = {rid: r.tokens for rid, r in eng.serve(rs16).items()}
+        fp32_equal[mode] = got[True] == got[False]
+    del params32, eng
+    torch.cuda.empty_cache()
+
+    s = cfg.ssm
+    H = s.n_heads(cfg.d_model)
+    conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    row = {"phase": f"serve_{cfg.family}", "arch": arch, "layers": L,
+           "d_model": cfg.d_model, "ssd_heads": H, "d_state": s.d_state,
+           "shared_block_runs": G, "params": n_params, "init_s": init_s, **runs,
+           "peak_allocated_bytes": peak, "card_bytes": card_bytes,
+           "weights_bytes": 2 * n_params,
+           "kv_cache_bytes": 2 * G * SERVE_BATCH * SERVE_MAX_LEN * cfg.n_kv * cfg.head_dim * 2
+           if hybrid else 0,
+           "ssm_state_bytes": L * SERVE_BATCH * H * s.d_state * s.head_dim * 4,
+           "conv_state_bytes": L * SERVE_BATCH * (s.d_conv - 1) * conv_ch * 2,
+           "profiled_wave": busy, "kernel_vs_plain": route,
+           "fp32_layers": cfg32.n_layers, "fp32_tokens_equal": fp32_equal}
+    emit(row)
+    c, w = runs["continuous"], runs["wave"]
+    if n_params != expect_params:
+        fail(f"{arch} has {n_params} parameters, expected {expect_params}")
+    if not (c["full_budgets"] and w["full_budgets"]):
+        fail(f"an {arch} request did not get its full token budget")
+    prefills = c["ssd_scan_launches"] // L
+    if prefills == 0 or c["ssd_scan_launches"] != prefills * L:
+        fail(f"continuous {arch} serve launched ssd_scan {c['ssd_scan_launches']} times, "
+             f"expected a positive multiple of {L}")
+    k3c = c["flash_decode_launches"]
+    if c["flash_attention_launches"] != prefills * G or (
+            (k3c == 0 or k3c % G) if hybrid else k3c):
+        fail(f"continuous {arch} serve launched K4/K3 {c['flash_attention_launches']}/{k3c} "
+             f"times over {prefills} prefills, expected {G} per prefill and a "
+             f"{'positive ' if hybrid else ''}multiple of {G} in decode")
+    expect = (L, G, G * (STATE_WAVE_BUDGET - 1))
+    got = (w["ssd_scan_launches"], w["flash_attention_launches"], w["flash_decode_launches"])
+    if got != expect:
+        fail(f"wave {arch} serve launched K5/K4/K3 {got} times, expected {expect}")
+    if not route["finite"] or max(route["prefill_rel_err"],
+                                  route["decode_rel_err"]) > LOGITS_REL_TOL:
+        fail(f"{arch}: kernel route disagrees with the plain route: {route}")
+    far = route["vs_fp32_plain"]
+    if any(far[p]["kernel"] - far[p]["plain"] > STATE_FP32_MARGIN for p in ("prefill", "decode")):
+        fail(f"{arch}: kernel route stands more than {STATE_FP32_MARGIN} further from the "
+             f"fp32 plain route than the bf16 plain route does: {far}")
+    if not all(fp32_equal.values()):
+        fail(f"{arch}: fp32 kernel-route tokens differ from the plain route's: {fp32_equal}")
+    return runs
+
+
+def _to_float(tree):
+    if isinstance(tree, dict):
+        return {k: _to_float(v) for k, v in tree.items()}
+    return tree.float()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
@@ -862,6 +1210,7 @@ def main() -> int:
     k1, k2 = phase_kernels(torch, peaks)
     k4, k3 = phase_attention_kernels(torch, peaks)
     k6 = phase_gmm_kernel(torch, peaks)
+    k5 = phase_ssd_kernel(torch, peaks)
     phase_listings(torch)
     k1_launches = phase_mandelbrot(torch)
     k2_launches = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
@@ -870,6 +1219,12 @@ def main() -> int:
     k6c, k6w, k4c, k4w, k3c, k3w = phase_serve_moe(torch)
     k4_launches += k4c + k4w
     k3_launches += k3c + k3w
+    k5_launches = 0
+    for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
+        for r in phase_serve_state(torch, arch, n).values():
+            k5_launches += r["ssd_scan_launches"]
+            k4_launches += r["flash_attention_launches"]
+            k3_launches += r["flash_decode_launches"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card, "peaks": peaks})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -887,6 +1242,9 @@ def main() -> int:
         {**k4, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
          "launches": k4_launches},
+        {**k5, "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:26",
+         "launches": k5_launches},
         {**k6, "route": "cuda", "source": "src/repro_torch/csrc/grouped_matmul.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:20",
          "launches": k6c + k6w},

@@ -67,15 +67,20 @@ struct Strides {              // in elements: batch, cache row, kv head
 // become zeros.  16-byte global loads, up to eight in flight per thread
 // before any is stored (a scalar loop waits out one load latency per
 // element); stores are 32-bit, as padded rows are only word aligned.  The
-// launcher checks that rows are 16-byte aligned.
+// launcher checks that rows are 16-byte aligned.  The tile's vectors need not
+// divide evenly among the threads (d = 80: ten vectors a bf16 row): the last
+// pass is then partial, its surplus lanes load and store nothing; where they
+// do divide (EVEN) the guard compiles away.
 template <typename T, int D, int ROWS, int LDS>
 __device__ __forceinline__ void stage_rows(T* dst, const T* src, long long stride,
                                            int row0, int n_rows, int tid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
-  constexpr int PER_THREAD = ROWS * PER_ROW / THREADS;
+  constexpr int TOTAL = ROWS * PER_ROW;                  // vectors in the tile
+  constexpr int PER_THREAD = (TOTAL + THREADS - 1) / THREADS;
   constexpr int BATCH = PER_THREAD < 8 ? PER_THREAD : 8;
-  static_assert(ROWS * PER_ROW % THREADS == 0 && PER_THREAD % BATCH == 0, "tiling");
+  constexpr bool EVEN = TOTAL % THREADS == 0 && PER_THREAD % BATCH == 0;
+  static_assert(D % VEC == 0, "rows are whole 16-byte vectors");
 #pragma unroll
   for (int i0 = 0; i0 < PER_THREAD; i0 += BATCH) {
     uint4 buf[BATCH];
@@ -83,13 +88,14 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, long long strid
     for (int i = 0; i < BATCH; ++i) {
       const int e = tid + (i0 + i) * THREADS;
       const int j = e / PER_ROW, c = (e % PER_ROW) * VEC;
-      buf[i] = j < n_rows
+      buf[i] = (EVEN || e < TOTAL) && j < n_rows
                    ? *reinterpret_cast<const uint4*>(src + (row0 + j) * stride + c)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
       const int e = tid + (i0 + i) * THREADS;
+      if (!EVEN && e >= TOTAL) continue;                 // the partial last pass
       const int j = e / PER_ROW, c = (e % PER_ROW) * VEC;
       unsigned int* d = reinterpret_cast<unsigned int*>(dst + j * LDS + c);
       d[0] = buf[i].x;
@@ -245,6 +251,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5]};
   switch (d) {
     case 64: return launch<T, 64>(q, k, v, kv_len, o, st, B, S, H, K, stream);
+    case 80: return launch<T, 80>(q, k, v, kv_len, o, st, B, S, H, K, stream);
     case 128: return launch<T, 128>(q, k, v, kv_len, o, st, B, S, H, K, stream);
     case 256: return launch<T, 256>(q, k, v, kv_len, o, st, B, S, H, K, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

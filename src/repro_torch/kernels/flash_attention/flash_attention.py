@@ -18,7 +18,7 @@ from .._build import LaunchCounter, check, library
 #: launches of the CUDA kernel (a count kept by this wrapper only)
 launches = LaunchCounter()
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)   # 80: zamba2-2.7b's shared attention block
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 
@@ -43,6 +43,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """q [B, Sq, H, d]; k, v [B, Skv, K, d] → [B, Sq, H, d] (contiguous), on
     the card, on the current stream."""
+    if q.dim() == 0 or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {tuple(q.shape)[-1:]} "
+                         f"not in {HEAD_DIMS}")
     ts = (q, k, v)
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device, "
@@ -58,8 +61,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if tuple(k.shape) != (B, Skv, K, d) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash attention shapes: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
     if K == 0 or H % K:
         raise ValueError(f"flash_attention_cuda: {H} query heads over {K} kv heads")
     out = torch.empty(B, Sq, H, d, dtype=q.dtype, device=q.device)

@@ -36,6 +36,9 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
                       kv_len: torch.Tensor) -> torch.Tensor:
     """q [B, H, d] (contiguous); caches [B, S, K, d]; kv_len [B] int32 →
     [B, H, d], on the card, on the current stream."""
+    if q.dim() == 0 or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_decode_cuda: head dim {tuple(q.shape)[-1:]} "
+                         f"not in {HEAD_DIMS}")
     ts = (q, k_cache, v_cache, kv_len)
     if any(t.device != q.device for t in ts) or q.device.type != "cuda":
         raise ValueError("flash_decode_cuda needs q, caches and kv_len on one CUDA "
@@ -54,8 +57,6 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     if tuple(k_cache.shape) != (B, S, K, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"flash decode shapes: q {tuple(q.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_decode_cuda: head dim {d} not in {HEAD_DIMS}")
     if K == 0 or H % K or H // K > MAX_GROUP:
         raise ValueError(f"flash_decode_cuda: {H} query heads over {K} kv heads "
                          f"(groups of at most {MAX_GROUP})")

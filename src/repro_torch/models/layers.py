@@ -53,6 +53,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (normed * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(x * silu(z)), silu taken in fp32 and
+    rounded to x's dtype before the product, as the reference does."""
+    x32 = (x * F.silu(z.to(torch.float32)).to(x.dtype)).to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
 def activate(gate: torch.Tensor, up: Optional[torch.Tensor], act: str) -> torch.Tensor:
     if act == "swiglu":
         return F.silu(gate) * up

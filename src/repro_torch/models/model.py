@@ -11,10 +11,10 @@ Batch dict keys (all optional per family):
   embeds      [B, S_front, D]         frontend-stub embeddings (vlm)
   enc_embeds  [B, S_enc, D]           encoder frontend embeddings (audio encdec)
 
-The attention families (dense, vlm, encdec/audio) and the moe family (its
-expert GEMMs on the grouped-matmul kernel K6 under ``use_kernels``) are
-ported.  The SSM and hybrid families (Mamba2 with its SSD-scan kernel K5)
-raise ``NotImplementedError``.
+Every family is ported: the attention families (dense, vlm, encdec/audio),
+the moe family (its expert GEMMs on the grouped-matmul kernel K6 under
+``use_kernels``), and the ssm (mamba2) and hybrid (zamba2) families, whose
+Mamba2 prefill runs the SSD-scan kernel K5 under ``use_kernels``.
 """
 from __future__ import annotations
 
@@ -25,11 +25,8 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..interop import params_from_numpy
-from . import transformer
+from . import hybrid, mamba_lm, transformer
 from .config import ModelConfig
-
-SSM_TODO = ("the {} family (Mamba2 SSD blocks and the ssd-scan kernel K5) is "
-            "not ported yet: ROADMAP.md item 13c, the SSM/hybrid serve path")
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -41,8 +38,6 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__()
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(SSM_TODO.format(cfg.family))
         self.cfg = cfg
         self.params: Optional[Dict[str, Any]] = None
 
@@ -51,7 +46,9 @@ class Model(nn.Module):
         """Random parameters from ``generator``, on ``device`` (the card
         unless the caller asks for the CPU; raises without one)."""
         dev = resolve_device(device)
-        params = transformer.decoder_init(generator, self.cfg)
+        init = {"hybrid": hybrid.hybrid_init,
+                "ssm": mamba_lm.mamba_lm_init}.get(self.cfg.family, transformer.decoder_init)
+        params = init(generator, self.cfg)
         if generator.device != dev:
             params = _to_device(params, dev)
         self.params = params
@@ -65,6 +62,11 @@ class Model(nn.Module):
     # -- passes ---------------------------------------------------------------
     def forward(self, params: Any, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return hybrid.hybrid_forward(params, cfg, batch["tokens"])
+        if cfg.family == "ssm":
+            return mamba_lm.mamba_lm_forward(params, cfg, batch["tokens"])
         return transformer.forward(params, self.cfg, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"),
                                    enc_embeds=batch.get("enc_embeds"))
@@ -74,7 +76,18 @@ class Model(nn.Module):
                 pad_width: Optional[torch.Tensor] = None):
         """``pad_width`` [B] int32: per-sequence left-pad widths, masked out
         of every attention with rope positions shifted, so a left-padded
-        prompt is bit-exact with its unpadded reference."""
+        prompt is bit-exact with its unpadded reference.  SSM/hybrid state
+        scans cannot skip pad steps, so those families reject ``pad_width``
+        (serve them unpadded, as the continuous batcher does)."""
+        cfg = self.cfg
+        if cfg.family in ("hybrid", "ssm"):
+            if pad_width is not None:
+                raise ValueError(
+                    f"{cfg.family} prefill cannot mask left-pads (state scans "
+                    "consume every step); prefill unpadded instead")
+            fn = (hybrid.hybrid_prefill if cfg.family == "hybrid"
+                  else mamba_lm.mamba_lm_prefill)
+            return fn(params, cfg, batch["tokens"], cache_len)
         return transformer.prefill(params, self.cfg, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"),
                                    enc_embeds=batch.get("enc_embeds"),
@@ -83,10 +96,35 @@ class Model(nn.Module):
     def decode_step(self, params: Any, token: torch.Tensor, cache, pos, *,
                     pad_width: Optional[torch.Tensor] = None, pad_offset: int = 0):
         """``pos`` an int (wave batching) or [B] (continuous batching); the
-        cache is updated in place and returned."""
+        cache is updated in place and returned.  ``pad_width`` and
+        ``pad_offset`` continue a pad-masked prefill (attention families
+        only; the ssm and hybrid families ignore them, as the reference's
+        do)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return hybrid.hybrid_decode_step(params, cfg, token, cache, pos)
+        if cfg.family == "ssm":
+            return mamba_lm.mamba_lm_decode_step(params, cfg, token, cache, pos)
         return transformer.decode_step(params, self.cfg, token, cache, pos,
                                        pad_width=pad_width, pad_offset=pad_offset)
 
     def make_cache(self, params: Any, batch_size: int, max_len: int,
                    memory: Optional[torch.Tensor] = None):
-        return transformer.make_cache(params, self.cfg, batch_size, max_len, memory)
+        """A zero decode cache on the parameters' device."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return hybrid.hybrid_make_cache(params, cfg, batch_size, max_len)
+        if cfg.family == "ssm":
+            return mamba_lm.mamba_lm_make_cache(params, cfg, batch_size)
+        return transformer.make_cache(params, cfg, batch_size, max_len, memory)
+
+    def cache_batch_axes(self) -> Any:
+        """The batch axis of each leaf of the decode cache, as a tree of
+        ints in the cache's structure (the hybrid's conv and SSM states are
+        [G, k, B, ...]; every other leaf has its batch on axis 1)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return dict(hybrid.CACHE_BATCH_AXES)
+        if cfg.family == "ssm":
+            return dict(mamba_lm.CACHE_BATCH_AXES)
+        return transformer.cache_batch_axes(cfg)

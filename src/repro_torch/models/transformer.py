@@ -201,6 +201,12 @@ def make_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
     return (self_kv, _cross_cache(params, cfg, memory))
 
 
+def cache_batch_axes(cfg: ModelConfig):
+    """The batch axis of each leaf of :func:`make_cache`'s cache, in its
+    structure: axis 1 throughout."""
+    return ((1, 1), (1, 1) if cfg.is_encdec else None)
+
+
 def prefill(params: Params, cfg: ModelConfig, *, tokens=None, embeds=None,
             enc_embeds=None, cache_len: Optional[int] = None,
             pad_width: Optional[torch.Tensor] = None):

@@ -5,20 +5,26 @@ Two execution modes, one token stream (greedy decodes are identical across
 them):
 
 * **Continuous (default).**  Requests stream through an admission queue into
-  a fixed pool of *slots*; each slot owns one row of a stacked KV cache.
-  Each step's admissions prefill together in constant-``B`` batches,
-  bucketed to a power of two with a per-sequence pad mask
-  (``Model.prefill(pad_width=...)``, bit-exact; unused rows are dummies);
-  each row is copied into its free slot, and every engine step runs ONE
-  batched decode over all occupied slots with a per-slot position vector.
-  Sequences join and leave at step boundaries.
+  a fixed pool of *slots*; each slot owns one row of a stacked KV/SSM
+  cache.  Each step's admissions prefill together in constant-``B``
+  batches — on attention families bucketed to a power of two with a
+  per-sequence pad mask (``Model.prefill(pad_width=...)``, bit-exact), on
+  the ssm and hybrid families, whose state scans cannot mask pads, in
+  exact-length groups; unused rows are dummies.  Each row is copied into
+  its free slot, and every engine step runs ONE batched decode over all
+  occupied slots with a per-slot position vector.  Sequences join and leave
+  at step boundaries.
 * **Wave (baseline).**  Form a wave of ≤B requests, left-pad to a common
   length, prefill once, decode until every member finishes.  Ragged waves
-  carry the per-sequence pad mask so pad slots are invisible.
+  of attention families carry the per-sequence pad mask so pad slots are
+  invisible; the ssm and hybrid families prefill the pads unmasked, as the
+  reference does.
 
-Every cache leaf the model returns ([L, B, S, K, Dh] self-KV, and the
-enc-dec cross-KV) has its batch on axis 1, so the slot cache is made in the
-shape of the first B-row prefill's cache and rows move along that axis.
+The slot cache is made in the shape of the first B-row prefill's cache, and
+rows move along each leaf's batch axis as the model states it
+(``Model.cache_batch_axes``): axis 1 for the [L, B, S, K, Dh] self-KV, the
+enc-dec cross-KV and the mamba2 states, axis 2 for the hybrid's [G, k, B,
+...] conv and SSM states.
 The reference's pool mode (the loop lowered onto the TaskGraph over device-
 resident caches) is not ported yet (ROADMAP item 14b): it needs
 ``alloc_resident`` / ``propagate_resident`` (item 9) and ``SloPlacement``
@@ -27,8 +33,11 @@ resident caches) is not ported yet (ROADMAP item 14b): it needs
 With ``use_kernels`` on the card, an unpadded prefill (wave mode with equal
 prompt lengths) runs the flash-attention kernel on every layer and every
 decode in which no live slot carries pads runs the flash-decode kernel.
-Continuous-mode prefill is always pad-masked, so it runs the plain
-blockwise path, as the reference's does.
+Continuous-mode prefill of an attention family is always pad-masked, so it
+runs the plain blockwise path, as the reference's does; the ssm and hybrid
+families prefill unpadded in both modes, so with ``use_kernels`` every
+prefill runs the SSD-scan kernel in each Mamba2 layer and (hybrid) flash
+attention in each shared block, and every decode flash decode.
 """
 from __future__ import annotations
 
@@ -81,6 +90,8 @@ class ServeConfig:
 def _tree_map(fn, tree):
     if isinstance(tree, tuple):
         return tuple(_tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
     if tree is None:
         return None
     return fn(tree)
@@ -89,6 +100,8 @@ def _tree_map(fn, tree):
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, tuple):
         return [leaf for t in tree for leaf in _leaves(t)]
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
     return [] if tree is None else [tree]
 
 
@@ -129,6 +142,7 @@ class ServeEngine:
         mcfg = model.cfg
         self._front_key = "enc_embeds" if mcfg.is_encdec else "embeds"
         self._prefix = frontend_seq if not mcfg.is_encdec else 0
+        self._can_mask = mcfg.family not in ("ssm", "hybrid")
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # admission queue + counters
         self._pending: deque = deque()
@@ -231,6 +245,7 @@ class ServeEngine:
             return
         B = self.cfg.batch
         self._c_cache = None                  # shaped at the first prefill
+        self._c_axes = _leaves(self.model.cache_batch_axes())
         self._c_pos = np.zeros(B, np.int32)
         self._c_pw = np.zeros(B, np.int32)
         self._c_tok = torch.zeros(B, 1, dtype=torch.int32, device=self.device)
@@ -243,11 +258,18 @@ class ServeEngine:
                         ) -> List[Tuple[List[Tuple[Request, int]], int]]:
         """Partition this step's admissions into batchable prefill groups.
 
-        Any mix of lengths shares one prefill at the group's (bucketed) max
-        length — except members whose token budget can't afford the
-        padding, which start their own group.  Returns [(members,
-        padded_len)] with members sorted longest-first.
+        Attention families pad-mask, so any mix of lengths shares one
+        prefill at the group's (bucketed) max length — except members whose
+        token budget can't afford the padding, which start their own group.
+        SSM/hybrid families can't mask, so only equal-length prompts batch.
+        Returns [(members, padded_len)], on attention families with members
+        sorted longest-first.
         """
+        if not self._can_mask:
+            by_len: Dict[int, List[Tuple[Request, int]]] = {}
+            for r, b in admits:
+                by_len.setdefault(len(r.prompt), []).append((r, b))
+            return [(members, L) for L, members in sorted(by_len.items())]
         groups: List[Tuple[List[Tuple[Request, int]], int]] = []
         for r, b in sorted(admits, key=lambda rb: -len(rb[0].prompt)):
             L = len(r.prompt)
@@ -276,15 +298,17 @@ class ServeEngine:
                 L = len(r.prompt)
                 toks[i, S - L:] = np.asarray(r.prompt, np.int32)
                 pw[i] = S - L
+            pad = torch.from_numpy(pw).to(self.device) if self._can_mask else None
             logits, cache_k, pos1 = self.model.prefill(
                 self.params, self._batch(toks), cache_len=self.cfg.max_len,
-                pad_width=torch.from_numpy(pw).to(self.device))
+                pad_width=pad)
             tok_k = self._sample(logits)
             if self._c_cache is None:
                 self._c_cache = _tree_map(torch.zeros_like, cache_k)
+            slots, news = _leaves(self._c_cache), _leaves(cache_k)
             for i, (r, b) in enumerate(members):
-                for slot, new in zip(_leaves(self._c_cache), _leaves(cache_k)):
-                    slot[:, b] = new[:, i]
+                for slot, new, ax in zip(slots, news, self._c_axes):
+                    slot.select(ax, b).copy_(new.select(ax, i))
                 self._c_pos[b] = int(pos1)
                 self._c_pw[b] = pw[i]
                 self._c_tok[b] = tok_k[i]
@@ -341,10 +365,11 @@ class ServeEngine:
         if act.any():
             t0 = time.perf_counter()
             posv = torch.from_numpy(self._c_pos).to(self.device)
-            # no live slot carries pads: the mask is the identity, so take
-            # the unmasked decode (bit-identical)
+            # no live slot carries pads (or the family cannot mask): take
+            # the unmasked decode (bit-identical where the mask is the
+            # identity)
             pw = (torch.from_numpy(self._c_pw).to(self.device)
-                  if self._c_pw.any() else None)
+                  if self._can_mask and self._c_pw.any() else None)
             logits, self._c_cache = self.model.decode_step(
                 self.params, self._c_tok, self._c_cache, posv, pad_width=pw,
                 pad_offset=self._prefix)
@@ -375,10 +400,12 @@ class ServeEngine:
         budget = max(r.max_new_tokens for r in reqs)
         if S + self._prefix + budget > self.cfg.max_len:
             raise ValueError("wave exceeds cache capacity")
-        # ragged waves carry a per-sequence pad mask: pad slots drop out of
-        # every attention and rope positions shift, so a padded row decodes
-        # as its unpadded reference
-        pad = torch.from_numpy(pw).to(self.device) if pw.any() else None
+        # ragged waves of attention families carry a per-sequence pad mask:
+        # pad slots drop out of every attention and rope positions shift, so
+        # a padded row decodes as its unpadded reference; the ssm and hybrid
+        # families scan the pads unmasked, as the reference's do
+        masked = self._can_mask and bool(pw.any())
+        pad = torch.from_numpy(pw).to(self.device) if masked else None
 
         t0 = time.perf_counter()
         logits, cache, pos = self.model.prefill(

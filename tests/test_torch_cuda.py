@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the BOTS workloads and the LM server (dense and MoE) launching
-them end to end.
+version, and the BOTS workloads and the LM server (dense, MoE, SSM and
+hybrid) launching them end to end.
 
 Every test here needs a card and is marked ``cuda``; whether a card is
 present is decided inside the fixture, so every worker collects the same
@@ -31,6 +31,10 @@ from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.kernels.mandelbrot import mandelbrot as k1
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_rows
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
+from repro_torch.kernels.ssd_scan import ssd_scan as k5
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
 from repro_torch.models import Model
 from repro_torch.models.moe import moe_apply
 from repro_torch.serve import Request, ServeConfig, ServeEngine
@@ -90,7 +94,8 @@ def _rand(rng, shape, device, dtype):
 
 
 @pytest.mark.parametrize("Sq,d,window", [(512, 128, 0), (512, 128, 128), (200, 128, 0),
-                                         (96, 64, 0), (130, 256, 48)])
+                                         (96, 64, 0), (130, 256, 48), (512, 80, 0),
+                                         (200, 80, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_cuda_matches_plain(cuda_device, Sq, d, window, dtype):
     """Model layout in, the plain version in the kernel's layout as the
@@ -113,7 +118,7 @@ def test_flash_attention_cuda_matches_plain(cuda_device, Sq, d, window, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_cuda_matches_plain(cuda_device, d, dtype):
     """Per-row kv_len from 0 (the mean of every value row) to past S."""
@@ -230,3 +235,106 @@ def test_two_layer_moe_serve_launches_the_kernels(cuda_device):
         assert launched == ((3 * 2 * 8, 2, 2 * 7) if use else (0, 0, 0))
     assert tokens[True] == tokens[False]
     assert all(len(t) == 8 for t in tokens[True].values())
+
+
+# ---------------------------------------------------------------------------
+# K5 SSD scan
+# ---------------------------------------------------------------------------
+# (b, S, H, P, G, N, the model's chunk): zamba2-2.7b's prefill, mamba2-130m's
+# (N = 128), a ragged S, two groups, and the smoke configs' shape
+SSD_SHAPES = [(4, 512, 80, 64, 1, 64, 256), (4, 512, 24, 64, 1, 128, 256),
+              (4, 509, 80, 64, 1, 64, 256), (2, 300, 8, 64, 2, 64, 256),
+              (2, 37, 8, 16, 1, 16, 16)]
+
+
+def ssd_inputs(gen, b, S, H, P, G, N, dtype, device):
+    """x, B, C as the Mamba2 mixer hands them over: slices of one [b, S,
+    H·P + 2·G·N] projection (strided, read in place); dt = softplus(randn),
+    A = -exp(0.3 randn), as the reference's own test draws them."""
+    xbc = torch.randn(b, S, H * P + 2 * G * N, generator=gen, device=device).to(dtype)
+    x, B, C = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    dt = torch.nn.functional.softplus(torch.randn(b, S, H, generator=gen, device=device))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device=device))
+    return (x.reshape(b, S, H, P), dt, A, B.reshape(b, S, G, N), C.reshape(b, S, G, N))
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_cuda_matches_plain(cuda_device, shape, dtype):
+    """fp32: y and the final state within 1e-3 of the plain version (its
+    256-step cumsums reach ~200, whose ulp moves every decay exp(cum_i -
+    cum_j) by ~1e-5 relative; the kernel sums 64-step chunks).  bf16: the
+    plain version rounds the state entering each chunk to bf16 before the
+    inter-chunk term and the kernel does not, so y is held by relative L2
+    (1e-2) against it, and elementwise (4e-2) against the plain version on
+    fp32 upcasts of the same inputs rounded once to bf16, which is the
+    kernel's own arithmetic; the fp32 final state within 4e-2."""
+    b, S, H, P, G, N, chunk = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(S + H + N)
+    x, dt, A, B, C = ssd_inputs(gen, b, S, H, P, G, N, dtype, cuda_device)
+    before = k5.launches.count
+    y, h = ssd_chunked_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert k5.launches.count == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    yp, hp = ssd_chunked(x, dt, A, B, C, chunk=chunk)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(h, hp, rtol=1e-3, atol=1e-3)
+        return
+    rel = float((y.float() - yp.float()).norm() / yp.float().norm())
+    assert rel <= 1e-2, rel
+    y32, h32 = ssd_chunked(*(t.float() for t in (x, dt, A, B, C)), chunk=chunk)
+    torch.testing.assert_close(y.float(), y32.to(dtype).float(), rtol=4e-2, atol=4e-2)
+    torch.testing.assert_close(h, hp, rtol=4e-2, atol=4e-2)
+    torch.testing.assert_close(h, h32, rtol=4e-2, atol=4e-2)
+
+
+def test_ssd_scan_cuda_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, dt, A, B, C = ssd_inputs(gen, 1, 16, 4, 64, 1, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan_cuda(x, dt.cpu(), A, B, C)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan_cuda(x, dt, A, B.to(torch.bfloat16), C)
+    for P, N in ((32, 64), (64, 32), (64, 256)):
+        x2, dt2, A2, B2, C2 = ssd_inputs(gen, 1, 16, 2, P, 1, N, torch.float32, cuda_device)
+        with pytest.raises(ValueError, match="not among"):
+            ssd_scan_cuda(x2, dt2, A2, B2, C2)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m"])
+def test_two_group_state_serve_launches_the_kernels(cuda_device, arch):
+    """A small ssm / hybrid model (P = N = 16; the hybrid's attention head
+    dim 80) served in wave mode with equal prompts and in continuous mode
+    with ragged ones: K5 in every Mamba2 layer of every prefill, K4 in every
+    shared block of the wave prefill, K3 in every shared block of every
+    decode; its fp32 tokens equal the plain route's."""
+    cfg = get_smoke_config(arch).replace(param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(d_head=80)
+    G = cfg.n_layers // cfg.hybrid_group if cfg.family == "hybrid" else 0
+    rng = np.random.default_rng(0)
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    for mode, lens in (("wave", (16, 16, 16)), ("continuous", (16, 13, 21, 13))):
+        reqs = [Request(i, rng.integers(1, cfg.vocab, L).tolist(), max_new_tokens=8)
+                for i, L in enumerate(lens)]
+        tokens = {}
+        for use in (True, False):
+            model = Model(cfg.replace(use_kernels=use))
+            before = (k5.launches.count, k4.launches.count, k3.launches.count)
+            eng = ServeEngine(model, params, ServeConfig(batch=3, max_len=48, mode=mode))
+            tokens[use] = {rid: r.tokens for rid, r in eng.serve(reqs).items()}
+            got = (k5.launches.count - before[0], k4.launches.count - before[1],
+                   k3.launches.count - before[2])
+            if not use:
+                assert got == (0, 0, 0)
+            elif mode == "wave":
+                assert got == (cfg.n_layers, G, G * 7)
+            else:
+                prefills = got[0] // cfg.n_layers
+                assert prefills >= 3 and got[0] == prefills * cfg.n_layers
+                assert got[1] == prefills * G
+                assert (got[2] > 0 and got[2] % G == 0) if G else got[2] == 0
+        assert tokens[True] == tokens[False]
+        assert all(len(t) == 8 for t in tokens[True].values())

@@ -70,6 +70,9 @@ def test_kernel_modules_build_nothing_at_import():
     modules = _modules()
     assert "repro_torch.kernels.grouped_matmul.grouped_matmul" in modules
     assert "repro_torch.models.moe" in modules
+    for name in ("models.ssm", "models.mamba_lm", "models.hybrid",
+                 "kernels.ssd_scan.ssd_scan", "kernels.ssd_scan.ops"):
+        assert f"repro_torch.{name}" in modules
     code = ("import importlib\n"
             "from repro_torch.kernels import _build\n"
             "def refuse(*args, **kwargs):\n"
@@ -124,6 +127,14 @@ def test_model_and_engine_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServeEngine(model, params, ServeConfig())
     assert ServeEngine(model, params, ServeConfig(), device="cpu").device.type == "cpu"
+    for arch in ("mamba2-130m", "zamba2-2.7b"):          # the state families too
+        model = Model(get_smoke_config(arch))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.init(torch.Generator().manual_seed(0))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ServeEngine(model, params, ServeConfig())
+        assert ServeEngine(model, params, ServeConfig(), device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -35,7 +35,8 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_lu import ops as lu_ops  # noqa: E402
 from repro_torch.kernels.block_lu.block_lu import bmod_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,  # noqa: E402
+                                                            flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda  # noqa: E402
@@ -209,6 +210,20 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         flash_decode_cuda(q[:, 0], q[:, :, :1], q[:, :, :1],
                           torch.ones(1, dtype=torch.int32))
+
+
+def test_attention_launchers_take_head_dim_80():
+    """d = 80 (zamba2-2.7b's shared attention block: 2560 / 32) passes the
+    launchers' head-dim check, and then they refuse the CPU tensor; an
+    unsupported d is refused by the check itself."""
+    assert 80 in HEAD_DIMS
+    for d, match in ((80, "CUDA device"), (96, "head dim")):
+        q = torch.zeros(1, 8, 3, d)
+        with pytest.raises(ValueError, match=match):
+            flash_attention_cuda(q, q[:, :, :1], q[:, :, :1])
+        with pytest.raises(ValueError, match=match):
+            flash_decode_cuda(q[:, 0], q[:, :, :1], q[:, :, :1],
+                              torch.ones(1, dtype=torch.int32))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -317,12 +317,6 @@ def test_kernel_route_equals_plain_route_on_cpu(arch):
         torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_smoke_config(arch))
-
-
 def test_init_makes_the_reference_tree():
     """Random init (from a torch generator) has the reference's keys,
     shapes and dtypes."""
