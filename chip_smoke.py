@@ -9,18 +9,21 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc/*.cu``
 (one ``nvcc`` per source, all started together, into ``build/kernels/``) and
 runs, printing one JSON line per phase:
 
-1. the card's name and power limit (``nvidia-smi``), the build, and
-   ``-Xptxas -v``'s registers and spills per kernel;
+1. the card's name and power limit (``nvidia-smi``), the build (each
+   library's own nvcc seconds), ``-Xptxas -v``'s registers and spills per
+   kernel, and the count of HGMMA (``wgmma``) instructions in the two
+   tensor-core libraries, flash attention and grouped matmul (none fails);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with its time, the plain version's time and, where one
    PyTorch call computes the same function, that call's (``torch.addmm``
    for bmod, ``scaled_dot_product_attention`` for the attention kernels):
    mandelbrot and bmod, then flash attention (4 sequences x 24 heads over
    8 kv heads, 512 causal rows, d = 128; also a window, a ragged Sq and
-   d = 256) and flash decode (32 kv rows x 3 query heads over a 1024-row
-   cache with per-row kv_len from 0 to 1024; also d = 256), fp32 and bf16,
-   and both at zamba2-2.7b's shared-block shapes (32 heads of d = 80, timed
-   beside SDPA too);
+   d = 256; its tensor-core path in bf16 over ``K4_SWEEP`` and on a fused
+   projection's strided views) and flash decode (32 kv rows x 3 query heads
+   over a 1024-row cache with per-row kv_len from 0 to 1024; also d = 256),
+   fp32 and bf16, and both at zamba2-2.7b's shared-block shapes (32 heads
+   of d = 80, timed beside SDPA too);
 3. the paper's Listings 1–2 on 8 virtual devices;
 4. BOTS mandelbrot at the paper's 4600 x 4600 image, max_iter 300:
    ``offload_strips`` on 8 virtual devices against the one-region serial
@@ -60,14 +63,19 @@ runs, printing one JSON line per phase:
    greedy tokens equal on both routes.
 
 Phase 2 also holds the grouped-matmul kernel against its plain version at
-the MoE path's shapes, beside ``torch.bmm`` as the library yardstick, and
+the MoE path's shapes, beside ``torch.bmm`` as the library yardstick (also at
+decode with ``GMM_OCCUPIED`` of 64 experts holding a token, moonshot's serve
+occupancy, and over ``GMM_CAPACITIES`` with empty experts), and
 the SSD-scan kernel against its plain version at the state serve paths'
 prefill shapes (zamba2's, mamba2's, a ragged S, two groups).  Phases 4 to 8
 then run a workload once more under ``torch.profiler`` and report the
 card's busy share of that run.
 
-Every kernel's launch count is set to 0 just before a main-path phase and
-read just after; a kernel of the path that did not launch fails the run.
+Every kernel's launch count, and K4's and K6's counts per path, are set to
+0 just before a main-path phase and read just after; a kernel of the path
+that did not launch fails the run, and so does a bf16 K4 launch off the
+``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a decode K6 launch
+off ``small_c``.
 Then it prints the ``{"kernels": [...]}`` line (times, bounds, launches) and,
 last, ``{"ok": true, "device": {...}}``.  It exits non-zero at the first
 failed phase, and when no card is present.
@@ -114,6 +122,19 @@ GMM_SHAPES = ((64, 240, 2048, 1408), (64, 1, 2048, 1408), (64, 240, 1408, 2048),
               (3, 3, 96, 100))
 # tolerances of the reference's own K6 test (tests/test_kernels.py:138-140)
 GMM_TOL = {"torch.float32": (1e-4, 1e-3), "torch.bfloat16": (3e-2, 3e-1)}
+# K4's tensor-core path over the edges of its tiles (bf16, B = 2, 2 kv
+# heads): query lengths around the 64-row warpgroup and 128-row CTA tiles,
+# every head dim it takes, windows shorter and longer than a 64-key tile,
+# and r = 1 and 3 query heads per kv head
+K4_SWEEP = {"Sq": (1, 63, 64, 65, 127, 129, 200, 512), "d": (64, 80, 128),
+            "window": (0, 48, 128), "r": (1, 3)}
+# K6 (bf16) at capacities around the small-C limit (16) and the 128-row
+# wgmma tile, on moonshot's gate/up widths with 8 experts, each with some
+# experts' x all zero: every third one, all of them, all but one
+GMM_CAPACITIES = (1, 2, 15, 16, 17, 60, 64, 240, 257)
+GMM_SWEEP_SHAPE = (8, 2048, 1408)       # (E, D, F)
+# moonshot's decode occupancy: 4 rows x top-6 reach ~20 of 64 experts
+GMM_OCCUPIED = 20
 MOE_ARCH, MOE_PARAMS = "moonshot-v1-16b-a3b", 27_722_450_944
 MOE_BUDGETS = (8, 16, 24, 32)           # max_new_tokens, cycled over the requests
 MOE_WAVE_BUDGET = 16
@@ -230,12 +251,45 @@ def phase_card_and_build():
     t0 = time.perf_counter()
     report = _build.build(force=True, ptxas_verbose=True)
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in r["log"].splitlines()
-                    if re.search(r"registers|spill", ln)]
-             for name, r in report.items()}
+    hgmma = {name: _build.sass_count(name) for name in ("flash_attention", "grouped_matmul")}
     emit({"phase": "build", "card": card, "seconds": seconds,
-          "sources": sorted(report), "ptxas": ptxas})
+          "library_seconds": {name: r["seconds"] for name, r in report.items()},
+          "hgmma_instructions": hgmma,
+          "ptxas": {name: _ptxas_by_kernel(_build, r["log"]) for name, r in report.items()}})
+    if not all(hgmma.values()):
+        fail(f"a tensor-core library holds no HGMMA instruction: {hgmma}")
     return card
+
+
+def _ptxas_by_kernel(_build, log: str) -> dict:
+    """``-Xptxas -v``'s registers and spills, keyed by each kernel's
+    demangled name (template arguments kept, parameters dropped)."""
+    rows, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and re.search(r"registers|spill", ln):
+            rows.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    filt = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    names = list(rows)
+    out = subprocess.run([filt, *names], capture_output=True, text=True).stdout.splitlines()
+    return {_kernel_name(sn): "; ".join(rows[n])
+            for sn, n in zip(out if len(out) == len(names) else names, names)}
+
+
+def _kernel_name(demangled: str) -> str:
+    """``void <unnamed>::wg::k<(int)128>(CUtensorMap_st, ...)`` →
+    ``wg::k<128>``: namespaces and casts dropped, the parameters cut at the
+    first parenthesis outside the template arguments."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "",
+                  demangled)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
 
 
 def phase_kernels(torch, peaks):
@@ -336,12 +390,13 @@ def _k4_timing(torch, peaks, q, k, v, err):
     K = k.shape[2]
     qk, kk, vk = _kernel_layout(q, k, v)
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    from repro_torch.kernels.flash_attention.flash_attention import attention_path
     pairs = B * H * S * (S + 1) // 2                  # unmasked (query, key) pairs
     bound, by = bound_ms(peaks, 2 * (2 * q.numel() + 2 * k.numel()), 4 * d * pairs,
                          "bf16_flops")
     return {"shape": {"B": B, "Sq": S, "H": H, "K": K, "d": d, "causal": True,
                       "dtype": "bfloat16"},
-            "max_abs_err": err,
+            "path": attention_path(q, k, v), "max_abs_err": err,
             "ms": time_ms(torch, lambda: gqa_flash_attention(q, k, v, causal=True), 20),
             "plain_ms": time_ms(torch, lambda: flash_attention_ref(qk, kk, vk, causal=True), 3),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -437,7 +492,9 @@ def phase_attention_kernels(torch, peaks):
     cases80, (q, k, v, err) = k4_cases(B, K, r, ((S, d, 0),))
     k4["d80"] = {**_k4_timing(torch, peaks, q, k, v, err), "cases": cases80}
     del q, k, v
-    k4["pass"] = all(c["pass"] for c in cases + cases80)
+    k4["wgmma_sweep"] = _k4_sweep(torch, randn)
+    k4["pass"] = (all(c["pass"] for c in cases + cases80)
+                  and not k4["wgmma_sweep"]["failed"])
     emit({"phase": "kernel_check", **k4})
 
     BK, r, S, d = DECODE_MAIN
@@ -455,49 +512,121 @@ def phase_attention_kernels(torch, peaks):
     emit({"phase": "kernel_check", **k3})
     if not k4["pass"]:
         fail(f"flash_attention kernel disagrees with its plain version: "
-             f"{k4['cases'] + k4['d80']['cases']}")
+             f"{k4['cases'] + k4['d80']['cases']}, sweep failures "
+             f"{k4['wgmma_sweep']['failed']}")
     if not k3["pass"]:
         fail(f"flash_decode kernel disagrees with its plain version: "
              f"{k3['cases'] + k3['d80']['cases']}")
     return k4, k3
 
 
+def _k4_sweep(torch, randn):
+    """K4's tensor-core path (bf16) against its plain version over
+    ``K4_SWEEP``, and on q, k, v as strided views of one fused [B, S,
+    (H + 2K)·d] projection; each call must take the wgmma path."""
+    import itertools
+    from repro_torch.kernels.flash_attention import flash_attention as k4mod
+    from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    wg = k4mod.path_launches["wgmma"]
+    dt, tol, B, K = torch.bfloat16, 4e-2, 2, 2
+    failed, worst, n = [], 0.0, 0
+
+    def check(q, k, v, window, label):
+        nonlocal worst, n
+        before = wg.count
+        out = gqa_flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        took = wg.count - before
+        ref = _model_layout(flash_attention_ref(*_kernel_layout(q, k, v), causal=True,
+                                                window=window), q.shape[0], k.shape[2])
+        err = float((out.float() - ref.float()).abs().max())
+        worst, n = max(worst, err), n + 1
+        if took != 1 or not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+            failed.append({**label, "wgmma_launches": took, "max_abs_err": err})
+
+    for Sq, d, window, r in itertools.product(*K4_SWEEP.values()):
+        q = randn(B, Sq, K * r, d, dtype=dt)
+        k, v = randn(B, Sq, K, d, dtype=dt), randn(B, Sq, K, d, dtype=dt)
+        check(q, k, v, window, {"Sq": Sq, "d": d, "window": window, "r": r})
+    for d in (80, 128):                     # fused projection: strided, in place
+        S, H = 200, 6
+        qkv = randn(B, S, (H + 2 * K) * d, dtype=dt)
+        q, k, v = (t.unflatten(-1, (-1, d)) for t in qkv.split([H * d, K * d, K * d], -1))
+        check(q, k, v, 0, {"fused_qkv": True, "Sq": S, "d": d, "r": H // K})
+    return {"cases": n, "tolerance": tol, "max_abs_err": worst, "failed": failed}
+
+
 def phase_gmm_kernel(torch, peaks):
     """K6 against its plain version at the MoE serve path's shapes, fp32 and
-    bf16, with its time, the plain version's and ``torch.bmm``'s at the
-    three serve shapes (bf16)."""
+    bf16, and over ``GMM_CAPACITIES`` with empty experts (each call on the
+    path ``gmm_path`` names); its time, the plain version's and
+    ``torch.bmm``'s at the three serve shapes (bf16), and at decode with
+    ``GMM_OCCUPIED`` of 64 experts holding a token."""
     from repro_torch.kernels.grouped_matmul import grouped_matmul as k6mod
-    from repro_torch.kernels.grouped_matmul.grouped_matmul import grouped_matmul_cuda
+    from repro_torch.kernels.grouped_matmul.grouped_matmul import (grouped_matmul_cuda,
+                                                                   gmm_path)
     from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
-    k6mod.launches.reset()
+    _reset_counts(k6mod)
     cases, serve_inputs = [], []
+
+    def check(x, w, label):
+        path = gmm_path(x, w)
+        before = k6mod.path_launches[path].count
+        out = grouped_matmul_cuda(x, w)
+        torch.cuda.synchronize()
+        took = k6mod.path_launches[path].count - before
+        ref = grouped_matmul_ref(x, w)
+        rtol, atol = GMM_TOL[str(x.dtype)]
+        err = float((out.float() - ref.float()).abs().max())
+        cases.append({**label, "dtype": str(x.dtype), "path": path, "max_abs_err": err,
+                      "rtol": rtol, "atol": atol,
+                      "pass": took == 1 and bool(torch.allclose(out.float(), ref.float(),
+                                                                rtol=rtol, atol=atol))})
+        return err
+
     for shape in GMM_SHAPES:
         E, C, D, F = shape
         for dtype in (torch.float32, torch.bfloat16):
-            rtol, atol = GMM_TOL[str(dtype)]
             x = torch.randn(E, C, D, generator=gen, device=dev).to(dtype)
             w = torch.randn(E, D, F, generator=gen, device=dev).to(dtype)
-            out = grouped_matmul_cuda(x, w)
-            torch.cuda.synchronize()
-            ref = grouped_matmul_ref(x, w)
-            err = float((out.float() - ref.float()).abs().max())
-            cases.append({"E": E, "C": C, "D": D, "F": F, "dtype": str(dtype),
-                          "max_abs_err": err, "rtol": rtol, "atol": atol,
-                          "pass": bool(torch.allclose(out.float(), ref.float(),
-                                                      rtol=rtol, atol=atol))})
+            err = check(x, w, {"E": E, "C": C, "D": D, "F": F})
             if dtype == torch.bfloat16 and shape != GMM_SHAPES[-1]:
                 serve_inputs.append((shape, x, w, err))
-            del out, ref
+    E, D, F = GMM_SWEEP_SHAPE
+    w = torch.randn(E, D, F, generator=gen, device=dev).to(torch.bfloat16)
+    for C in GMM_CAPACITIES:
+        x = torch.randn(E, C, D, generator=gen, device=dev).to(torch.bfloat16)
+        for empty, keep in (("every third", x), ("all", torch.zeros_like(x)),
+                            ("all but one", torch.zeros_like(x))):
+            xe = keep.clone()
+            if empty == "every third":
+                xe[::3] = 0
+            elif empty == "all but one":
+                xe[E // 2] = x[E // 2]
+            check(xe, w, {"E": E, "C": C, "D": D, "F": F, "empty_experts": empty})
     check_launches = k6mod.launches.count
+    check_paths = _path_counts(k6mod)
+
+    # moonshot's decode at serve occupancy: GMM_OCCUPIED experts hold a row
+    (E, C, D, F), x1, w1, _ = serve_inputs[1]
+    xo = torch.zeros_like(x1)
+    hot = torch.randperm(E, generator=gen, device=dev)[:GMM_OCCUPIED]
+    xo[hot] = x1[hot]
+    err = check(xo, w1, {"E": E, "C": C, "D": D, "F": F, "occupied_experts": GMM_OCCUPIED})
+    serve_inputs.append(((E, C, D, F), xo, w1, err))
     timings = []
-    for (E, C, D, F), x, w, err in serve_inputs:
+    for i, ((E, C, D, F), x, w, err) in enumerate(serve_inputs):
         reps = 50 if C == 1 else 10
-        bound, by = bound_ms(peaks, 2 * (E * C * D + E * D * F + E * C * F),
-                             2 * E * C * D * F, "bf16_flops")
+        occupied = E if i < len(serve_inputs) - 1 else GMM_OCCUPIED
+        # bytes: x and the output once, the weights of the occupied experts
+        bound, by = bound_ms(peaks, 2 * (E * C * D + occupied * D * F + E * C * F),
+                             2 * occupied * C * D * F, "bf16_flops")
         timings.append({"E": E, "C": C, "D": D, "F": F, "dtype": "bfloat16",
+                        "occupied_experts": occupied, "path": gmm_path(x, w),
                         "max_abs_err": err,
                         "ms": time_ms(torch, lambda: grouped_matmul_cuda(x, w), reps),
                         "plain_ms": time_ms(torch, lambda: grouped_matmul_ref(x, w), 3),
@@ -508,14 +637,27 @@ def phase_gmm_kernel(torch, peaks):
     main = timings[0]                     # the prefill gate/up projection
     k6 = {"name": "grouped_matmul", "cases": cases, "timings": timings,
           "shape": {k: main[k] for k in ("E", "C", "D", "F", "dtype")},
-          "check_launches": check_launches,
+          "check_launches": check_launches, "check_path_launches": check_paths,
           **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")},
           "pass": all(c["pass"] for c in cases)}
     emit({"phase": "kernel_check", **k6})
     if not k6["pass"]:
-        fail(f"grouped_matmul kernel disagrees with its plain version: {cases}")
+        fail(f"grouped_matmul kernel disagrees with its plain version: "
+             f"{[c for c in cases if not c['pass']]}")
     return k6
+
+
+def _reset_counts(*mods) -> None:
+    """Set a kernel module's launch count and its per-path counts to 0."""
+    for m in mods:
+        m.launches.reset()
+        for c in getattr(m, "path_launches", {}).values():
+            c.reset()
+
+
+def _path_counts(mod) -> dict:
+    return {p: c.count for p, c in mod.path_launches.items()}
 
 
 def _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype):
@@ -735,13 +877,6 @@ def phase_serve(torch):
     from repro_torch.models import Model
     from repro_torch.serve import Request, ServeConfig, ServeEngine
 
-    def reset():
-        k4mod.launches.reset()
-        k3mod.launches.reset()
-
-    def counts():
-        return k4mod.launches.count, k3mod.launches.count
-
     cfg = get_config(SERVE_ARCH).replace(use_kernels=True)
     L = cfg.n_layers
     model = Model(cfg)
@@ -761,12 +896,12 @@ def phase_serve(torch):
     for mode, rs in (("continuous", reqs), ("wave", wave_reqs)):
         eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
                                                      mode=mode))
-        reset()
+        _reset_counts(k4mod, k3mod)
         t0 = time.perf_counter()
         res = eng.serve(rs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        k4n, k3n = counts()
+        k4n, k3n = k4mod.launches.count, k3mod.launches.count
         tokens = sum(len(r.tokens) for r in res.values())
         runs[mode] = {
             "requests": len(rs), "wall_s": wall, "new_tokens": tokens,
@@ -774,6 +909,7 @@ def phase_serve(torch):
             "prefill_s": sum(r.prefill_s for r in res.values()),
             "decode_s": sum(r.decode_s for r in res.values()),
             "flash_attention_launches": k4n, "flash_decode_launches": k3n,
+            "flash_attention_paths": _path_counts(k4mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -834,13 +970,22 @@ def phase_serve(torch):
     if (w["flash_attention_launches"], w["flash_decode_launches"]) != (L, L * (WAVE_BUDGET - 1)):
         fail(f"wave serve launched K4/K3 {w['flash_attention_launches']}/"
              f"{w['flash_decode_launches']} times, expected {L}/{L * (WAVE_BUDGET - 1)}")
+    _check_k4_paths(SERVE_ARCH, runs)
     if not route["finite"] or max(route["prefill_rel_err"],
                                   route["decode_rel_err"]) > LOGITS_REL_TOL:
         fail(f"kernel route disagrees with the plain route: {route}")
     if not row["fp32_2layer_tokens_equal"]:
         fail("fp32 kernel-route tokens differ from the plain route's")
-    return (c["flash_attention_launches"] + w["flash_attention_launches"],
-            c["flash_decode_launches"] + w["flash_decode_launches"])
+    return runs
+
+
+def _check_k4_paths(arch: str, runs: dict) -> None:
+    """Every bf16 K4 launch of a serve phase (d = 80 or 128) took the
+    tensor-core path."""
+    for mode, r in runs.items():
+        if r["flash_attention_paths"]["wgmma"] != r["flash_attention_launches"]:
+            fail(f"{arch} {mode}: K4 launched {r['flash_attention_launches']} times, "
+                 f"{r['flash_attention_paths']} by path; expected every one on wgmma")
 
 
 def phase_serve_moe(torch):
@@ -880,8 +1025,7 @@ def phase_serve_moe(torch):
     for mode, rs in (("continuous", reqs), ("wave", wave_reqs)):
         eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
                                                      mode=mode))
-        for m in mods:
-            m.launches.reset()
+        _reset_counts(*mods)
         t0 = time.perf_counter()
         res = eng.serve(rs)
         torch.cuda.synchronize()
@@ -894,7 +1038,8 @@ def phase_serve_moe(torch):
             "prefill_s": sum(r.prefill_s for r in res.values()),
             "decode_s": sum(r.decode_s for r in res.values()),
             "grouped_matmul_launches": k6n, "flash_attention_launches": k4n,
-            "flash_decode_launches": k3n,
+            "flash_decode_launches": k3n, "grouped_matmul_paths": _path_counts(k6mod),
+            "flash_attention_paths": _path_counts(k4mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -1008,6 +1153,17 @@ def phase_serve_moe(torch):
            w["flash_decode_launches"])
     if got != expect:
         fail(f"wave MoE serve launched K6/K4/K3 {got} times, expected {expect}")
+    _check_k4_paths(MOE_ARCH, runs)
+    # prefill (C = 60 or more) on the tensor cores, decode (C = 1) small-C
+    wpaths, cpaths = w["grouped_matmul_paths"], c["grouped_matmul_paths"]
+    decodes = per_step * (MOE_WAVE_BUDGET - 1)
+    if (wpaths["wgmma"], wpaths["small_c"], wpaths["cuda_core"]) != (per_step, decodes, 0):
+        fail(f"wave MoE serve launched K6 by path {wpaths}, expected {per_step} wgmma and "
+             f"{decodes} small_c")
+    if (cpaths["cuda_core"] or not cpaths["wgmma"] or cpaths["wgmma"] % per_step
+            or not cpaths["small_c"] or cpaths["small_c"] % per_step):
+        fail(f"continuous MoE serve launched K6 by path {cpaths}, expected positive multiples "
+             f"of {per_step} on wgmma (prefills) and small_c (decodes), none on cuda_core")
     for name, r in layer.items():
         if not (r["dest_keep_equal"] and r["finite"]) or r["y_rel_err"] > MOE_LAYER_REL_TOL:
             fail(f"MoE layer ({name}): kernel route disagrees with the plain route: {r}")
@@ -1015,8 +1171,7 @@ def phase_serve_moe(torch):
         fail(f"MoE logits are not finite: {route}")
     if not row["fp32_2layer_tokens_equal"]:
         fail("fp32 MoE kernel-route tokens differ from the plain route's")
-    return tuple(r[f"{k}_launches"] for k in ("grouped_matmul", "flash_attention",
-                                              "flash_decode") for r in (c, w))
+    return runs
 
 
 def phase_serve_state(torch, arch: str, expect_params: int):
@@ -1060,8 +1215,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
     for mode, rs in (("continuous", reqs), ("wave", wave_reqs)):
         eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
                                                      mode=mode))
-        for m in mods:
-            m.launches.reset()
+        _reset_counts(*mods)
         t0 = time.perf_counter()
         res = eng.serve(rs)
         torch.cuda.synchronize()
@@ -1074,7 +1228,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
             "prefill_s": sum(r.prefill_s for r in res.values()),
             "decode_s": sum(r.decode_s for r in res.values()),
             "ssd_scan_launches": k5n, "flash_attention_launches": k4n,
-            "flash_decode_launches": k3n,
+            "flash_decode_launches": k3n, "flash_attention_paths": _path_counts(k4mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -1168,6 +1322,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
     got = (w["ssd_scan_launches"], w["flash_attention_launches"], w["flash_decode_launches"])
     if got != expect:
         fail(f"wave {arch} serve launched K5/K4/K3 {got} times, expected {expect}")
+    _check_k4_paths(arch, runs)
     if not route["finite"] or max(route["prefill_rel_err"],
                                   route["decode_rel_err"]) > LOGITS_REL_TOL:
         fail(f"{arch}: kernel route disagrees with the plain route: {route}")
@@ -1215,20 +1370,21 @@ def main() -> int:
     k1_launches = phase_mandelbrot(torch)
     k2_launches = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
-    k4_launches, k3_launches = phase_serve(torch)
-    k6c, k6w, k4c, k4w, k3c, k3w = phase_serve_moe(torch)
-    k4_launches += k4c + k4w
-    k3_launches += k3c + k3w
-    k5_launches = 0
+    serve_runs = [*phase_serve(torch).values(), *phase_serve_moe(torch).values()]
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
-        for r in phase_serve_state(torch, arch, n).values():
-            k5_launches += r["ssd_scan_launches"]
-            k4_launches += r["flash_attention_launches"]
-            k3_launches += r["flash_decode_launches"]
+        serve_runs += phase_serve_state(torch, arch, n).values()
+
+    def served(kernel):
+        """A kernel's launches over every serve run, and per path."""
+        paths: dict = {}
+        for r in serve_runs:
+            for p, n in r.get(f"{kernel}_paths", {}).items():
+                paths[p] = paths.get(p, 0) + n
+        return sum(r.get(f"{kernel}_launches", 0) for r in serve_runs), paths
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "card": card, "peaks": peaks})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path_launches")
     rows = [
         {**k1, "route": "cuda", "source": "src/repro_torch/csrc/mandelbrot.cu",
          "replaces": "src/repro/kernels/mandelbrot/mandelbrot.py:18",
@@ -1238,18 +1394,20 @@ def main() -> int:
          "launches": k2_launches},
         {**k3, "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode/flash_decode.py:30",
-         "launches": k3_launches},
+         "launches": served("flash_decode")[0]},
         {**k4, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
-         "launches": k4_launches},
+         "launches": served("flash_attention")[0],
+         "path_launches": served("flash_attention")[1]},
         {**k5, "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:26",
-         "launches": k5_launches},
+         "launches": served("ssd_scan")[0]},
         {**k6, "route": "cuda", "source": "src/repro_torch/csrc/grouped_matmul.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:20",
-         "launches": k6c + k6w},
+         "launches": served("grouped_matmul")[0],
+         "path_launches": served("grouped_matmul")[1]},
     ]
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

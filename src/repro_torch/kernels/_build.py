@@ -3,11 +3,12 @@
 Every ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers) and
 is compiled by its own ``nvcc`` call for Hopper (``sm_90a``) into
 ``build/kernels/lib<name>-<digest>.so`` at the repository root, then loaded
-with ``ctypes``.  The digest covers the source and the flags, so an edited
-source rebuilds.  :func:`build` starts one ``nvcc`` per source, all at once,
-and waits for them; :func:`library` builds on first use, so a bare run of
-``chip_smoke.py`` builds everything itself.  A missing ``nvcc`` or a failed
-build raises — there is no fallback.
+with ``ctypes``.  The digest covers the source, the shared headers
+(``csrc/*.cuh``, such as ``hopper.cuh``'s TMA / mbarrier / wgmma helpers) and
+the flags, so an edited source or header rebuilds.  :func:`build` starts one
+``nvcc`` per source, all at once, and waits for them; :func:`library` builds
+on first use, so a bare run of ``chip_smoke.py`` builds everything itself.
+A missing ``nvcc`` or a failed build raises — there is no fallback.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error
@@ -71,9 +72,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
@@ -81,36 +84,54 @@ def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
     """Compile ``names`` (default: all sources) in parallel, one nvcc each.
 
     Up-to-date libraries are skipped unless ``force``.  Returns, per source
-    built, the wall seconds and the compiler's log (with ``ptxas_verbose``,
-    ``-Xptxas -v``'s registers, shared memory and spills per kernel).
+    built, its own nvcc's wall seconds and the compiler's log (with
+    ``ptxas_verbose``, ``-Xptxas -v``'s registers, shared memory and spills
+    per kernel).
     """
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
-    procs = {}
-    t0 = time.perf_counter()
+    done: Dict[str, tuple] = {}
+
+    def run(name: str, cmd: list, t0: float) -> None:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        done[name] = (proc.returncode, proc.stdout, time.perf_counter() - t0)
+
+    threads, outs = [], {}
     for name in names:
         out = lib_path(name)
         if out.exists() and not force:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        outs[name] = (tmp, out)
         cmd = [compiler, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        threads.append(threading.Thread(target=run, args=(name, cmd, time.perf_counter())))
+        threads[-1].start()
+    for t in threads:
+        t.join()
     report: Dict[str, Dict[str, object]] = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+    for name, (tmp, out) in outs.items():
+        code, log, seconds = done[name]
+        if code != 0:
+            failed.append(f"{name}.cu (exit {code}):\n{log}")
             continue
         os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[name] = {"seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
+
+
+def sass_count(name: str, opcode: str = "HGMMA") -> int:
+    """How many ``opcode`` instructions the built ``lib<name>`` holds
+    (``cuobjdump -sass``; HGMMA is wgmma on the tensor cores)."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -126,7 +147,13 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+# codes the tensor-core entry points return beyond cudaError_t's (csrc/hopper.cuh)
+_TENSOR_MAP_ERRORS = {9001: "the driver's cuTensorMapEncodeTiled was not found",
+                      9002: "cuTensorMapEncodeTiled refused a tensor map"}
+
+
 def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+        reason = _TENSOR_MAP_ERRORS.get(code, f"CUDA error {code}")
+        raise RuntimeError(f"{what}: {reason} at launch")

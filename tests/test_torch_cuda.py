@@ -105,17 +105,67 @@ def test_flash_attention_cuda_matches_plain(cuda_device, Sq, d, window, dtype):
     q = _rand(rng, (B, Sq, K * r, d), cuda_device, dtype)
     k = _rand(rng, (B, Sq, K, d), cuda_device, dtype)
     v = _rand(rng, (B, Sq, K, d), cuda_device, dtype)
-    before = k4.launches.count
+    path = "wgmma" if dtype == torch.bfloat16 and d != 256 else "cuda_core"
+    before = k4.launches.count, k4.path_launches[path].count
     out = gqa_flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert k4.launches.count == before + 1
-    qk = q.reshape(B, Sq, K, r, d).permute(0, 2, 3, 1, 4).reshape(B * K, r, Sq, d)
-    kk = k.permute(0, 2, 1, 3).reshape(B * K, Sq, d)
-    vk = v.permute(0, 2, 1, 3).reshape(B * K, Sq, d)
-    ref = flash_attention_ref(qk, kk, vk, causal=True, window=window)
-    ref = ref.reshape(B, K, r, Sq, d).permute(0, 3, 1, 2, 4).reshape(B, Sq, K * r, d)
+    assert (k4.launches.count, k4.path_launches[path].count) == (before[0] + 1, before[1] + 1)
     tol = TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(out.float(), _attention_ref(q, k, v, window).float(),
+                               rtol=tol, atol=tol)
+
+
+def _attention_ref(q, k, v, window):
+    """The plain version, run in the kernels' (batch·kv head, group) layout
+    and returned in the model layout."""
+    B, Sq, H, d = q.shape
+    K = k.shape[2]
+    r = H // K
+    qk = q.reshape(B, Sq, K, r, d).permute(0, 2, 3, 1, 4).reshape(B * K, r, Sq, d)
+    kk = k.permute(0, 2, 1, 3).reshape(B * K, -1, d)
+    vk = v.permute(0, 2, 1, 3).reshape(B * K, -1, d)
+    ref = flash_attention_ref(qk, kk, vk, causal=True, window=window)
+    return ref.reshape(B, K, r, Sq, d).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, d)
+
+
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 127, 129, 200, 512])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("window", [0, 48, 128])
+@pytest.mark.parametrize("r", [1, 3])
+def test_flash_attention_wgmma_matches_plain(cuda_device, Sq, d, window, r):
+    """K4's tensor-core path (bf16) over the edges of its tiles: query
+    lengths around the 64-row warpgroup and the 128-row CTA, windows shorter
+    and longer than a 64-key stage, GQA groups of 1 and 3."""
+    rng = np.random.default_rng(Sq * 7 + d + window + r)
+    B, K = 2, 2
+    q = _rand(rng, (B, Sq, K * r, d), cuda_device, torch.bfloat16)
+    k = _rand(rng, (B, Sq, K, d), cuda_device, torch.bfloat16)
+    v = _rand(rng, (B, Sq, K, d), cuda_device, torch.bfloat16)
+    before = k4.path_launches["wgmma"].count
+    out = gqa_flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert k4.path_launches["wgmma"].count == before + 1
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), _attention_ref(q, k, v, window).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [80, 128])
+def test_flash_attention_wgmma_reads_fused_projection_views(cuda_device, d):
+    """q, k, v as strided views of one fused [B, S, (H + 2K)·d] projection,
+    read in place by the tensor maps."""
+    rng = np.random.default_rng(d)
+    B, S, H, K = 2, 200, 6, 2
+    qkv = _rand(rng, (B, S, (H + 2 * K) * d), cuda_device, torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (-1, d)) for t in qkv.split([H * d, K * d, K * d], -1))
+    assert not q.is_contiguous()
+    before = k4.path_launches["wgmma"].count
+    out = gqa_flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert k4.path_launches["wgmma"].count == before + 1
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), _attention_ref(q, k, v, 0).float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("d", [80, 128, 256])
@@ -183,13 +233,44 @@ def test_grouped_matmul_cuda_matches_plain(cuda_device, E, C, D, F, dtype, rtol,
     gen = torch.Generator(device=cuda_device).manual_seed(E + C + D + F)
     x = torch.randn(E, C, D, generator=gen, device=cuda_device).to(dtype)
     w = torch.randn(E, D, F, generator=gen, device=cuda_device).to(dtype)
-    before = k6.launches.count
+    path = ("cuda_core" if dtype == torch.float32 or F % 8 else
+            "small_c" if C <= 16 else "wgmma")
+    before = k6.launches.count, k6.path_launches[path].count
     out = expert_ffn_matmul(x, w)
     torch.cuda.synchronize()
-    assert k6.launches.count == before + 1
+    assert (k6.launches.count, k6.path_launches[path].count) == (before[0] + 1, before[1] + 1)
     assert out.dtype == dtype and tuple(out.shape) == (E, C, F)
     torch.testing.assert_close(out.float(), grouped_matmul_ref(x, w).float(),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("C", [1, 2, 15, 16, 17, 60, 64, 240, 257])
+@pytest.mark.parametrize("empty", ["every third", "all", "all but one"])
+def test_grouped_matmul_bf16_paths_with_empty_experts(cuda_device, C, empty):
+    """K6 in bf16 on moonshot's gate/up widths with 8 experts, some of whose
+    x are all zero: C <= 16 takes the small-C path (which skips an empty
+    expert's weights), above it the tensor-core path; both within the
+    reference's K6 tolerance."""
+    E, D, F = 8, 2048, 1408
+    gen = torch.Generator(device=cuda_device).manual_seed(C)
+    x = torch.randn(E, C, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(E, D, F, generator=gen, device=cuda_device).to(torch.bfloat16)
+    if empty == "every third":
+        x[::3] = 0
+    elif empty == "all":
+        x.zero_()
+    else:
+        x[: E // 2] = 0
+        x[E // 2 + 1:] = 0
+    path = "small_c" if C <= 16 else "wgmma"
+    before = k6.path_launches[path].count
+    out = expert_ffn_matmul(x, w)
+    torch.cuda.synchronize()
+    assert k6.path_launches[path].count == before + 1
+    ref = grouped_matmul_ref(x, w)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-1)
+    empty_experts = (x == 0).flatten(1).all(1)
+    assert not out[empty_experts].any()
 
 
 def _moe_cfg():
@@ -212,6 +293,27 @@ def test_moe_layer_never_waits_for_the_card(cuda_device):
             y, aux = moe_apply(p, x, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(y).all() and torch.isfinite(aux)
+
+
+def test_bf16_moe_layer_takes_the_new_paths_without_waiting(cuda_device):
+    """In bf16 the MoE layer's expert GEMMs take the small-C path at a
+    decode shape (C = 4) and the tensor-core path at a prefill shape (C =
+    32), and still make no host synchronization."""
+    cfg = _moe_cfg().replace(use_kernels=True, param_dtype="bfloat16",
+                             compute_dtype="bfloat16")
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    for shape, path in (((4, 1, cfg.d_model), "small_c"), ((2, 16, cfg.d_model), "wgmma")):
+        x = torch.randn(*shape, device=cuda_device).to(torch.bfloat16)
+        before = k6.path_launches[path].count
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_apply(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert k6.path_launches[path].count == before + 3
         assert torch.isfinite(y).all() and torch.isfinite(aux)
 
 

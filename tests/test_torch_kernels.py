@@ -36,6 +36,7 @@ from repro_torch.kernels.block_lu import ops as lu_ops  # noqa: E402
 from repro_torch.kernels.block_lu.block_lu import bmod_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,  # noqa: E402
+                                                            attention_path,
                                                             flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
@@ -224,6 +225,47 @@ def test_attention_launchers_take_head_dim_80():
         with pytest.raises(ValueError, match=match):
             flash_decode_cuda(q[:, 0], q[:, :, :1], q[:, :, :1],
                               torch.ones(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("d,dtype,path", [
+    (128, torch.bfloat16, "wgmma"), (80, torch.bfloat16, "wgmma"), (64, torch.bfloat16, "wgmma"),
+    (256, torch.bfloat16, "cuda_core"), (128, torch.float32, "cuda_core"),
+    (80, torch.float32, "cuda_core"), (256, torch.float32, "cuda_core")])
+def test_attention_path_is_chosen_from_dtype_shape_and_strides(d, dtype, path):
+    """K4's launcher picks its kernel up front, on any device (meta here):
+    bf16 at d = 64, 80, 128 on the tensor cores, the rest on CUDA cores; a
+    fused projection's strided views take the same path."""
+    q = torch.empty(4, 512, 24, d, dtype=dtype, device="meta")
+    k = torch.empty(4, 512, 8, d, dtype=dtype, device="meta")
+    assert attention_path(q, k, k) == path
+    qkv = torch.empty(4, 512, 40 * d, dtype=dtype, device="meta")
+    fq, fk, fv = (t.unflatten(-1, (-1, d)) for t in qkv.split([24 * d, 8 * d, 8 * d], -1))
+    assert attention_path(fq, fk, fv) == path
+
+
+def test_attention_path_refuses_what_no_kernel_takes():
+    q = torch.zeros(1, 8, 3, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_path(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros(1, 8, 3, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        attention_path(q, q[:, :, :1].float(), q[:, :, :1])
+    with pytest.raises(ValueError, match="shapes"):
+        attention_path(q, q[:, :4, :1], q[:, :, :1])
+    odd = torch.zeros(1 * 8 * 3 * 80 + 1, dtype=torch.bfloat16)[1:].view(1, 8, 3, 80)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_path(odd, odd[:, :, :1], odd[:, :, :1])
+
+
+def test_build_digest_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edited ``csrc/*.cuh`` (the TMA / mbarrier / wgmma helpers) gives
+    every library a new build path, so it rebuilds."""
+    for name in ("flash_attention.cu", "hopper.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.lib_path("flash_attention")
+    (tmp_path / "hopper.cuh").write_text("// edited\n", encoding="utf-8")
+    assert _build.lib_path("flash_attention") != before
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

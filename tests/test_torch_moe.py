@@ -26,7 +26,7 @@ from repro.models.model import Model as JModel
 from repro_torch.configs import get_smoke_config
 from repro_torch.interop import params_from_numpy, to_numpy_tree
 from repro_torch.kernels.grouped_matmul import ops as gmm_ops
-from repro_torch.kernels.grouped_matmul.grouped_matmul import grouped_matmul_cuda
+from repro_torch.kernels.grouped_matmul.grouped_matmul import gmm_path, grouped_matmul_cuda
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
 from repro_torch.models import Model
 from repro_torch.models import layers as tl
@@ -99,6 +99,71 @@ def test_grouped_matmul_wrappers_refuse_what_they_do_not_take():
         grouped_matmul_cuda(x, w)
     with pytest.raises(ValueError, match="unsupported device"):
         gmm_ops.expert_ffn_matmul(x.to("meta"), w.to("meta"))
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype,path", [
+    (64, 1, 2048, 1408, torch.bfloat16, "small_c"),     # moonshot's decode
+    (64, 16, 2048, 1408, torch.bfloat16, "small_c"),
+    (64, 17, 2048, 1408, torch.bfloat16, "wgmma"),
+    (64, 240, 2048, 1408, torch.bfloat16, "wgmma"),     # moonshot's prefill
+    (64, 60, 1408, 2048, torch.bfloat16, "wgmma"),      # one prompt admitted
+    (2, 8, 7168, 64, torch.bfloat16, "wgmma"),          # x[e] outgrows shared memory
+    (64, 1, 2048, 1408, torch.float32, "cuda_core"),
+    (64, 240, 2048, 1408, torch.float32, "cuda_core"),
+    (3, 3, 96, 100, torch.bfloat16, "cuda_core"),       # rows not on 16 bytes
+    (3, 300, 96, 100, torch.bfloat16, "cuda_core"),
+])
+def test_gmm_path_is_chosen_from_dtype_shape_and_strides(E, C, D, F, dtype, path):
+    """K6's launcher picks its kernel up front, on any device (meta here:
+    no memory)."""
+    x = torch.empty(E, C, D, dtype=dtype, device="meta")
+    w = torch.empty(E, D, F, dtype=dtype, device="meta")
+    assert gmm_path(x, w) == path
+
+
+def test_gmm_path_refuses_what_no_kernel_takes():
+    x, w = torch.zeros(2, 3, 8, dtype=torch.bfloat16), torch.zeros(2, 8, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        gmm_path(x, w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_path(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="shapes"):
+        gmm_path(x, w[:, :4].contiguous())
+    misaligned = torch.zeros(2 * 3 * 8 + 1, dtype=torch.bfloat16)[1:].view(2, 3, 8)
+    assert gmm_path(misaligned, w) == "cuda_core"
+
+
+@pytest.mark.parametrize("T", [1, 24])        # one decode row (C = 1) and a prefill
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_leaves_empty_capacity_rows_exactly_zero(T, dtype, monkeypatch):
+    """The invariant K6's small-C path relies on to skip an expert: on
+    moonshot's smoke config, every capacity slot that no token fills is
+    exactly zero in the xe that meets w_gate and w_in, and in the SwiGLU
+    output that meets w_out.  One row (top-2 of 4 experts) leaves whole
+    experts empty, the case the kernel skips."""
+    jcfg, tcfg, jp, tp = _layer("moonshot-v1-16b-a3b", dtype)
+    tcfg = tcfg.replace(use_kernels=True)
+    m = tcfg.moe
+    seen = []
+    real = tmoe.expert_ffn_matmul
+
+    def recording(x, w):
+        seen.append(x.clone())
+        return real(x, w)
+
+    monkeypatch.setattr(tmoe, "expert_ffn_matmul", recording)
+    _, txt = _x(jcfg, 5, (T, tcfg.d_model))
+    _, idx = tmoe.router_topk(txt.float() @ tp["router"].float(), m.top_k)
+    C = int(np.ceil(T * m.top_k / m.n_experts * m.capacity_factor))
+    _, dest, keep = tmoe._dispatch(tp, txt, idx, C, tcfg)
+    filled = torch.zeros(m.n_experts * C + 1, dtype=torch.bool)
+    filled[dest[keep]] = True
+    empty = ~filled[:-1].view(m.n_experts, C)
+    assert empty.any() and (T > 1 or empty.all(dim=1).any())
+    assert [tuple(x.shape[:2]) for x in seen] == [(m.n_experts, C)] * 3
+    for x in seen:                               # xe, xe, then the SwiGLU output
+        assert torch.equal(x[empty], torch.zeros_like(x[empty]))
+        assert not torch.equal(x[~empty], torch.zeros_like(x[~empty]))
 
 
 # ---------------------------------------------------------------------------
