@@ -21,9 +21,12 @@ runs, printing one JSON line per phase:
    8 kv heads, 512 causal rows, d = 128; also a window, a ragged Sq and
    d = 256; its tensor-core path in bf16 over ``K4_SWEEP`` and on a fused
    projection's strided views) and flash decode (32 kv rows x 3 query heads
-   over a 1024-row cache with per-row kv_len from 0 to 1024; also d = 256),
+   over a 1024-row cache with per-row kv_len from 0 to 1024; also d = 256;
+   its split-KV path over ``K3_SWEEP``'s kv_len edges and split counts),
    fp32 and bf16, and both at zamba2-2.7b's shared-block shapes (32 heads
-   of d = 80, timed beside SDPA too);
+   of d = 80, timed beside SDPA too); bmod and flash decode report their
+   path and their CTAs (flash decode: its split count), and each check
+   call of either is repeated and must give the same bits;
 3. the paper's Listings 1–2 on 8 virtual devices;
 4. BOTS mandelbrot at the paper's 4600 x 4600 image, max_iter 300:
    ``offload_strips`` on 8 virtual devices against the one-region serial
@@ -71,17 +74,19 @@ prefill shapes (zamba2's, mamba2's, a ragged S, two groups).  Phases 4 to 8
 then run a workload once more under ``torch.profiler`` and report the
 card's busy share of that run.
 
-Every kernel's launch count, and K4's and K6's counts per path, are set to
-0 just before a main-path phase and read just after; a kernel of the path
-that did not launch fails the run, and so does a bf16 K4 launch off the
-``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a decode K6 launch
-off ``small_c``.
+Every kernel's launch count, and K2's, K3's, K4's and K6's counts per path,
+are set to 0 just before a main-path phase and read just after; a kernel of
+the path that did not launch fails the run, and so does a sparselu K2 launch
+off the ``cp_async`` path, a serve K3 launch off the ``split`` path, a bf16
+K4 launch off the ``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a
+decode K6 launch off ``small_c``.
 Then it prints the ``{"kernels": [...]}`` line (times, bounds, launches) and,
 last, ``{"ok": true, "device": {...}}``.  It exits non-zero at the first
 failed phase, and when no card is present.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import re
@@ -102,7 +107,7 @@ PEAKS = {
 MANDEL_SIZE, MANDEL_ITER, MANDEL_DEVICES = 4600, 300, 8
 LU_K, LU_B, LU_DEVICES = 16, 128, 4
 LU_LARGE = (5, 96)                      # the reference's "large" size
-BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (200, 72, 136))   # (M, N, K)
+BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (64, 64, 64), (200, 72, 136))   # (M, N, K)
 # the serve phase's attention shapes (minitron-4b: 8 kv heads, r = 3, d = 128)
 ATTN_MAIN = (4, 8, 3, 512, 128)         # K4: (B, K, r, Sq = Skv, d)
 DECODE_MAIN = (32, 3, 1024, 128)        # K3: (B·K, r, S, d)
@@ -128,6 +133,10 @@ GMM_TOL = {"torch.float32": (1e-4, 1e-3), "torch.bfloat16": (3e-2, 3e-1)}
 # and r = 1 and 3 query heads per kv head
 K4_SWEEP = {"Sq": (1, 63, 64, 65, 127, 129, 200, 512), "d": (64, 80, 128),
             "window": (0, 48, 128), "r": (1, 3)}
+# K3 (split-KV) over kv_len edges and split counts: a 1024-row cache, r = 3,
+# zamba2's and minitron's head dims; None is the launcher's own count
+K3_SWEEP = {"S": 1024, "r": 3, "d": (80, 128), "n_split": (None, 1, 2, 3, 5, 8, 16)}
+K3_TIMED_SPLITS = (1, 2, 4, 8, 16)      # split counts timed beside the launcher's own
 # K6 (bf16) at capacities around the small-C limit (16) and the 128-row
 # wgmma tile, on moonshot's gate/up widths with 8 experts, each with some
 # experts' x all zero: every third one, all of them, all but one
@@ -211,6 +220,16 @@ def bound_ms(peaks, nbytes: float, flops: float, flop_key: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _port_kernels() -> list:
+    """The names of the __global__ functions in the port's CUDA sources."""
+    names = []
+    for path in sorted(glob.glob(os.path.join(ROOT, "src", "repro_torch", "csrc", "*.cu"))):
+        with open(path) as f:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                f.read())
+    return names
+
+
 def device_busy(torch, fn) -> dict:
     """Run ``fn`` once more under ``torch.profiler`` (CUDA activity) and
     report the union of the device intervals it recorded — kernels and
@@ -233,10 +252,18 @@ def device_busy(torch, fn) -> dict:
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    # the port's own kernels (the __global__ functions of csrc/*.cu), by
+    # function name: K3's split and combine kernels apart, for instance
+    ours: dict = {}
+    for name, us in by_name.items():
+        m = re.search(r"\b(" + "|".join(_port_kernels()) + r")\b", name)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + us * 1e-6
     return {"profiled_wall_s": wall, "device_events": len(events),
             "device_busy_s": busy_us * 1e-6 if events else None,
             "device_busy_share": busy_us * 1e-6 / wall if events else None,
-            "top_device_s": {name[:60]: us * 1e-6 for name, us in top}}
+            "top_device_s": {name[:60]: us * 1e-6 for name, us in top},
+            "port_kernel_s": ours}
 
 
 def phase_card_and_build():
@@ -296,7 +323,7 @@ def phase_kernels(torch, peaks):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.core import strip_partition
     from repro_torch.kernels.block_lu import block_lu as k2mod
-    from repro_torch.kernels.block_lu.block_lu import bmod_cuda
+    from repro_torch.kernels.block_lu.block_lu import bmod_cuda, bmod_path
     from repro_torch.kernels.block_lu.ref import bmod_ref
     from repro_torch.kernels.mandelbrot import mandelbrot as k1mod
     from repro_torch.kernels.mandelbrot.mandelbrot import mandelbrot_rows_cuda
@@ -304,7 +331,7 @@ def phase_kernels(torch, peaks):
 
     dev = torch.device("cuda", 0)
     k1mod.launches.reset()
-    k2mod.launches.reset()
+    _reset_counts(k2mod)
     n = MANDEL_SIZE
     rows = torch.arange(n, dtype=torch.int32, device=dev)
     img = mandelbrot_rows_cuda(rows, n, n, MANDEL_ITER)
@@ -338,20 +365,25 @@ def phase_kernels(torch, peaks):
             l = torch.randn(M, K, generator=gen, device=dev).to(dtype)
             u = torch.randn(K, N, generator=gen, device=dev).to(dtype)
             out = bmod_cuda(a, l, u)
+            again = bmod_cuda(a, l, u)
             torch.cuda.synchronize()
             ref = bmod_ref(a, l, u)
             err = float((out.float() - ref.float()).abs().max())
             ok = bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))
-            cases.append({"M": M, "N": N, "K": K, "dtype": str(dtype),
-                          "max_abs_err": err, "tolerance": tol, "pass": ok})
+            cases.append({"M": M, "N": N, "K": K, "dtype": str(dtype), "path": bmod_path(l, u),
+                          "max_abs_err": err, "tolerance": tol,
+                          "bitwise_repeat": bool(torch.equal(out, again)),
+                          "pass": ok and bool(torch.equal(out, again))})
     k2_check_launches = k2mod.launches.count
     B = LU_B
     a, l, u = (torch.randn(B, B, generator=gen, device=dev) for _ in range(3))
     k2_bound, k2_by = bound_ms(peaks, 4 * 4 * B * B, 2 * B ** 3, "fp32_flops")
     main_case = next(c for c in cases if (c["M"], c["N"], c["K"]) == (B, B, B)
                      and c["dtype"] == "torch.float32")
-    k2 = {"name": "bmod", "cases": cases, "shape": [B, B, B],
+    k2 = {"name": "bmod", "cases": cases, "shape": [B, B, B], "path": bmod_path(l, u),
+          "ctas": ((B + k2mod.TILE - 1) // k2mod.TILE) ** 2,
           "check_launches": k2_check_launches,
+          "check_path_launches": _path_counts(k2mod),
           "max_abs_err": main_case["max_abs_err"],
           "ms": time_ms(torch, lambda: bmod_cuda(a, l, u), 200),
           "plain_ms": time_ms(torch, lambda: bmod_ref(a, l, u), 200),
@@ -408,11 +440,14 @@ def _k3_timing(torch, peaks, q, kc, vc, lens, err):
     """K3's time, its plain version's, SDPA's (bool mask) and the bound, on
     bf16 q [BK, r, d] and caches [BK, S, d] with per-row ``lens``."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.flash_decode.flash_decode import (decode_path, flash_decode_cuda,
+                                                               split_plan)
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     BK, r, d = q.shape
     S = kc.shape[1]
     k4d, v4d = kc[:, :, None], vc[:, :, None]
+    n_split, rows_per_split = split_plan(BK, S, torch.cuda.get_device_properties(0)
+                                         .multi_processor_count)
     rows = sum(min(n, S) if n > 0 else S for n in lens.tolist())   # cache rows needed
     bound, by = bound_ms(peaks, 2 * (2 * rows * d + 2 * q.numel()) + 4 * BK,
                          4 * d * r * rows, "bf16_flops")
@@ -420,8 +455,12 @@ def _k3_timing(torch, peaks, q, kc, vc, lens, err):
     q4, kl, vl = q[:, :, None], kc[:, None], vc[:, None]
     return {"shape": {"BK": BK, "r": r, "S": S, "d": d, "kv_len": lens.tolist(),
                       "dtype": "bfloat16"},
-            "max_abs_err": err,
+            "path": decode_path(q, k4d), "n_split": n_split,
+            "rows_per_split": rows_per_split, "ctas": BK * n_split, "max_abs_err": err,
             "ms": time_ms(torch, lambda: flash_decode_cuda(q, k4d, v4d, lens), 200),
+            # the split rule's neighbours: the same call at other split counts
+            "ms_by_n_split": {n: time_ms(torch, lambda: flash_decode_cuda(
+                q, k4d, v4d, lens, n_split=n), 200) for n in K3_TIMED_SPLITS},
             "plain_ms": time_ms(torch, lambda: flash_decode_ref(q, kc, vc, lens), 20),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, kl, vl, attn_mask=mask, enable_gqa=True), 200),
@@ -508,7 +547,10 @@ def phase_attention_kernels(torch, peaks):
                           device=dev)
     cases80, (q, kc, vc, err) = k3_cases(BK, r, S, (d,), lens80)
     k3["d80"] = {**_k3_timing(torch, peaks, q, kc, vc, lens80, err), "cases": cases80}
-    k3["pass"] = all(c["pass"] for c in cases + cases80)
+    del q, kc, vc
+    k3["split_sweep"] = _k3_sweep(torch, randn)
+    k3["pass"] = (all(c["pass"] for c in cases + cases80)
+                  and not k3["split_sweep"]["failed"])
     emit({"phase": "kernel_check", **k3})
     if not k4["pass"]:
         fail(f"flash_attention kernel disagrees with its plain version: "
@@ -516,8 +558,57 @@ def phase_attention_kernels(torch, peaks):
              f"{k4['wgmma_sweep']['failed']}")
     if not k3["pass"]:
         fail(f"flash_decode kernel disagrees with its plain version: "
-             f"{k3['cases'] + k3['d80']['cases']}")
+             f"{k3['cases'] + k3['d80']['cases']}, sweep failures "
+             f"{k3['split_sweep']['failed']}")
+    if k3["path"] != "split" or k3["n_split"] < 2:
+        fail(f"flash_decode at {DECODE_MAIN} runs {k3['n_split']} split(s) on the "
+             f"{k3['path']} path; expected more than one split")
     return k4, k3
+
+
+def _k3_sweep(torch, randn):
+    """K3 against its plain version over ``K3_SWEEP``: per-row kv_len on
+    each side of every split boundary, 0, 1, S and past S, at split counts
+    from one to one per 64-row unit (and the launcher's own), fp32 and bf16;
+    each call must take the path its split count names and give the same
+    bits twice."""
+    import itertools
+    from repro_torch.kernels.flash_decode import flash_decode as k3mod
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda, split_plan
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    dev = torch.device("cuda", 0)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    S, r = K3_SWEEP["S"], K3_SWEEP["r"]
+    failed, worst, n = [], {}, 0
+    for d, dtype, n_split in itertools.product(K3_SWEEP["d"], (torch.float32, torch.bfloat16),
+                                               K3_SWEEP["n_split"]):
+        tol = 1e-4 if dtype == torch.float32 else 4e-2
+        # split boundaries as minitron's decode (32 rows) is cut, or as asked
+        _, rows = split_plan(32, S, n_sm, n_split)
+        lens = sorted({0, 1, S, S + 5, *(x + o for x in range(rows, S, rows) for o in (-1, 0, 1))})
+        BK = len(lens)
+        q = randn(BK, r, d, dtype=dtype)
+        kc, vc = randn(BK, S, d, dtype=dtype), randn(BK, S, d, dtype=dtype)
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        n_call, _ = split_plan(BK, S, n_sm, n_split)
+        path = "split" if n_call > 1 else "single"
+        before = k3mod.path_launches[path].count
+        out = flash_decode_cuda(q, kc[:, :, None], vc[:, :, None], kl, n_split=n_split)
+        again = flash_decode_cuda(q, kc[:, :, None], vc[:, :, None], kl, n_split=n_split)
+        torch.cuda.synchronize()
+        took = k3mod.path_launches[path].count - before
+        ref = flash_decode_ref(q, kc, vc, kl)
+        err = float((out.float() - ref.float()).abs().max())
+        key = str(dtype)
+        worst[key], n = max(worst.get(key, 0.0), err), n + 1
+        if (took != 2 or not torch.equal(out, again)
+                or not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)):
+            failed.append({"d": d, "dtype": key, "n_split": n_split, "n_split_run": n_call,
+                           "path_launches": took, "max_abs_err": err,
+                           "bitwise_repeat": bool(torch.equal(out, again))})
+    return {"cases": n, "S": S, "r": r, "tolerance": {"torch.float32": 1e-4,
+                                                      "torch.bfloat16": 4e-2},
+            "max_abs_err": worst, "failed": failed}
 
 
 def _k4_sweep(torch, randn):
@@ -830,11 +921,12 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int):
                         table=bl._make_table(K), device="cuda")
     try:
         n_tasks = len(bl._build_dag(mat, K, B))
-        k2.launches.reset()
+        _reset_counts(k2)
         t0 = time.perf_counter()
         res = bl.wavefront(rt, mat)
         wall = time.perf_counter() - t0
         launches = k2.launches.count
+        paths = _path_counts(k2)
         s = rt.cost.summary()
         ser = bl.serial(rt, mat)
         busy = device_busy(torch, lambda: bl.wavefront(rt, mat))
@@ -852,7 +944,7 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int):
     expect = sum(m * m for m in range(K))
     row = {"phase": "bots_sparselu", "K": K, "B": B, "devices": n_devices,
            "tasks": n_tasks, "wall_s": wall, "bmod_launches": launches,
-           "bmod_expected": expect, "max_abs_diff_vs_serial": diff,
+           "bmod_path_launches": paths, "bmod_expected": expect, "max_abs_diff_vs_serial": diff,
            "residual": residual, "finite": bool(torch.isfinite(lu).all()),
            "modeled_makespan_s": s["makespan_s"], "compute_s": s["compute_s"],
            "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
@@ -860,9 +952,12 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int):
     emit(row)
     if launches != expect:
         fail(f"bmod launched {launches} times in the wavefront, expected {expect}")
+    if paths["cp_async"] != launches:
+        fail(f"sparselu K={K} B={B}: bmod launched {paths} by path; expected every "
+             f"launch on cp_async")
     if not row["finite"] or diff != 0.0 or residual > 1e-5:
         fail(f"sparselu K={K} B={B}: diff {diff}, residual {residual}")
-    return launches
+    return launches, paths
 
 
 def phase_serve(torch):
@@ -910,6 +1005,7 @@ def phase_serve(torch):
             "decode_s": sum(r.decode_s for r in res.values()),
             "flash_attention_launches": k4n, "flash_decode_launches": k3n,
             "flash_attention_paths": _path_counts(k4mod),
+            "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -971,6 +1067,7 @@ def phase_serve(torch):
         fail(f"wave serve launched K4/K3 {w['flash_attention_launches']}/"
              f"{w['flash_decode_launches']} times, expected {L}/{L * (WAVE_BUDGET - 1)}")
     _check_k4_paths(SERVE_ARCH, runs)
+    _check_k3_paths(SERVE_ARCH, runs)
     if not route["finite"] or max(route["prefill_rel_err"],
                                   route["decode_rel_err"]) > LOGITS_REL_TOL:
         fail(f"kernel route disagrees with the plain route: {route}")
@@ -986,6 +1083,15 @@ def _check_k4_paths(arch: str, runs: dict) -> None:
         if r["flash_attention_paths"]["wgmma"] != r["flash_attention_launches"]:
             fail(f"{arch} {mode}: K4 launched {r['flash_attention_launches']} times, "
                  f"{r['flash_attention_paths']} by path; expected every one on wgmma")
+
+
+def _check_k3_paths(arch: str, runs: dict) -> None:
+    """Every K3 launch of a serve phase took the split path (more than one
+    split per sequence and kv head)."""
+    for mode, r in runs.items():
+        if r["flash_decode_paths"]["split"] != r["flash_decode_launches"]:
+            fail(f"{arch} {mode}: K3 launched {r['flash_decode_launches']} times, "
+                 f"{r['flash_decode_paths']} by path; expected every one on split")
 
 
 def phase_serve_moe(torch):
@@ -1040,6 +1146,7 @@ def phase_serve_moe(torch):
             "grouped_matmul_launches": k6n, "flash_attention_launches": k4n,
             "flash_decode_launches": k3n, "grouped_matmul_paths": _path_counts(k6mod),
             "flash_attention_paths": _path_counts(k4mod),
+            "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -1154,6 +1261,7 @@ def phase_serve_moe(torch):
     if got != expect:
         fail(f"wave MoE serve launched K6/K4/K3 {got} times, expected {expect}")
     _check_k4_paths(MOE_ARCH, runs)
+    _check_k3_paths(MOE_ARCH, runs)
     # prefill (C = 60 or more) on the tensor cores, decode (C = 1) small-C
     wpaths, cpaths = w["grouped_matmul_paths"], c["grouped_matmul_paths"]
     decodes = per_step * (MOE_WAVE_BUDGET - 1)
@@ -1229,6 +1337,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
             "decode_s": sum(r.decode_s for r in res.values()),
             "ssd_scan_launches": k5n, "flash_attention_launches": k4n,
             "flash_decode_launches": k3n, "flash_attention_paths": _path_counts(k4mod),
+            "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -1323,6 +1432,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
     if got != expect:
         fail(f"wave {arch} serve launched K5/K4/K3 {got} times, expected {expect}")
     _check_k4_paths(arch, runs)
+    _check_k3_paths(arch, runs)
     if not route["finite"] or max(route["prefill_rel_err"],
                                   route["decode_rel_err"]) > LOGITS_REL_TOL:
         fail(f"{arch}: kernel route disagrees with the plain route: {route}")
@@ -1368,7 +1478,7 @@ def main() -> int:
     k5 = phase_ssd_kernel(torch, peaks)
     phase_listings(torch)
     k1_launches = phase_mandelbrot(torch)
-    k2_launches = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
+    k2_launches, k2_paths = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
     serve_runs = [*phase_serve(torch).values(), *phase_serve_moe(torch).values()]
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
@@ -1391,10 +1501,11 @@ def main() -> int:
          "launches": k1_launches},
         {**k2, "route": "cuda", "source": "src/repro_torch/csrc/block_lu.cu",
          "replaces": "src/repro/kernels/block_lu/block_lu.py:21",
-         "launches": k2_launches},
+         "launches": k2_launches, "path_launches": k2_paths},
         {**k3, "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode/flash_decode.py:30",
-         "launches": served("flash_decode")[0]},
+         "launches": served("flash_decode")[0],
+         "path_launches": served("flash_decode")[1]},
         {**k4, "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
          "launches": served("flash_attention")[0],

@@ -1,6 +1,9 @@
 // hopper.cuh: the sm_90a building blocks of the tensor-core kernels
-// (flash_attention.cu, grouped_matmul.cu), as inline PTX.
+// (flash_attention.cu, grouped_matmul.cu) and of the CUDA-core pipelines
+// (flash_decode.cu, block_lu.cu), as inline PTX.
 //
+//  * cp.async: 16-byte global -> shared copies that bypass L1 and zero-fill
+//    past the bytes they are told to read, grouped and waited for by count;
 //  * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity;
 //  * TMA: tiled 3-D / 4-D loads into shared memory completing on an
 //    mbarrier, from a CUtensorMap passed by value as a __grid_constant__
@@ -80,6 +83,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (clock64() - start > (1ll << 34)) __trap();
   }
+}
+
+// ---- cp.async ------------------------------------------------------------
+// copy 16 bytes from global `src` to shared `dst` (both 16-byte aligned),
+// reading only the first `src_bytes` (0..16) and zero-filling the rest; with
+// src_bytes = 0 nothing is read, but `src` must still be a valid address
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// close the group of copies this thread issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+// (other threads' copies are visible only after a __syncthreads)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- TMA -----------------------------------------------------------------

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 if ROOT not in sys.path:
@@ -21,6 +22,8 @@ from repro_torch.bots import common as tcommon  # noqa: E402
 from repro_torch.bots import mandelbrot as tbm  # noqa: E402
 from repro_torch.bots import sparselu as tbl  # noqa: E402
 from repro_torch.interop import from_numpy_tree, to_numpy_tree  # noqa: E402
+
+torch.set_num_threads(1)      # six test workers share the CPU
 
 
 def _bytes(rt):

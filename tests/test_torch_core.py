@@ -18,6 +18,8 @@ from repro_torch.core import kernel_table as tkt
 from repro_torch.core import mediary as tmed
 from repro_torch.core import ClusterRuntime, MapSpec, RuntimeConfig, TensorSpec
 
+torch.set_num_threads(1)      # six test workers share the CPU
+
 
 # ---------------------------------------------------------------------------
 # kernel table

@@ -18,12 +18,15 @@ from repro_torch.bots import sparselu as tbl
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.block_lu import block_lu as k2
 from repro_torch.kernels.block_lu.ops import bmod_op
+from repro_torch.kernels.block_lu.block_lu import bmod_cuda
 from repro_torch.kernels.block_lu.ref import bmod_ref
 from repro_torch.kernels.flash_attention import flash_attention as k4
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_decode import flash_decode as k3
 from repro_torch.kernels.flash_decode.ops import gqa_flash_decode
+from repro_torch.kernels.flash_decode.flash_decode import (decode_path, flash_decode_cuda,
+                                                           split_plan)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.grouped_matmul import grouped_matmul as k6
 from repro_torch.kernels.grouped_matmul.ops import expert_ffn_matmul
@@ -40,6 +43,8 @@ from repro_torch.models.moe import moe_apply
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(1)      # six test workers share the CPU
 
 
 @pytest.fixture
@@ -60,7 +65,8 @@ def test_mandelbrot_cuda_matches_plain(cuda_device):
     assert torch.equal(out, mandelbrot_rows_ref(rows, 257, 320, 120))
 
 
-@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (96, 96, 96), (200, 72, 136)])
+@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (96, 96, 96), (200, 72, 136),
+                                   (64, 64, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 4e-2)])
 def test_bmod_cuda_matches_plain(cuda_device, M, N, K, dtype, tol):
@@ -74,6 +80,59 @@ def test_bmod_cuda_matches_plain(cuda_device, M, N, K, dtype, tol):
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), bmod_ref(a, l, u).float(),
                                rtol=tol, atol=tol)
+
+
+def _bmod_inputs(device, M, N, K, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device, dtype)
+            for s in ((M, N), (M, K), (K, N))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bmod_cuda_paths_and_determinism(cuda_device, dtype):
+    """B = 128 runs 16 CTAs on the cp.async path; an operand whose rows are
+    not whole 16-byte chunks takes the elementwise path and agrees with the
+    plain version; two calls give the same bits."""
+    a, l, u = _bmod_inputs(cuda_device, 128, 128, 128, dtype)
+    assert k2.bmod_path(l, u) == "cp_async"
+    before = k2.path_launches["cp_async"].count
+    first, second = bmod_cuda(a, l, u), bmod_cuda(a, l, u)
+    torch.cuda.synchronize()
+    assert k2.path_launches["cp_async"].count == before + 2
+    assert torch.equal(first, second)
+    a, l, u = _bmod_inputs(cuda_device, 37, 29, 13, dtype, seed=1)
+    assert k2.bmod_path(l, u) == "elementwise"
+    before = k2.path_launches["elementwise"].count
+    out = bmod_cuda(a, l, u)
+    torch.cuda.synchronize()
+    assert k2.path_launches["elementwise"].count == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), bmod_ref(a, l, u).float(), rtol=tol, atol=tol)
+
+
+def test_bmod_cuda_is_bitwise_equal_across_streams_and_threads(cuda_device):
+    """Two worker threads, each launching on its own stream at once (as two
+    virtual devices do), get the bits of a launch on the default stream."""
+    import threading
+    a, l, u = _bmod_inputs(cuda_device, 128, 128, 128, torch.float32, seed=2)
+    want = bmod_cuda(a, l, u)
+    torch.cuda.synchronize()
+    got, barrier = {}, threading.Barrier(2)
+
+    def work(i):
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            barrier.wait()
+            outs = [bmod_cuda(a, l, u) for _ in range(50)]
+        stream.synchronize()
+        got[i] = outs
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert all(torch.equal(o, want) for outs in got.values() for o in outs)
 
 
 def test_bots_verify_on_card(cuda_device):
@@ -188,6 +247,110 @@ def test_flash_decode_cuda_matches_plain(cuda_device, d, dtype):
                            lens[:, None].expand(B, K).reshape(B * K)).reshape(B, 1, K * r, d)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# the serve paths' decode shapes (B, K, r, d) over a 1024-row cache:
+# minitron-4b, moonshot-v1-16b-a3b, zamba2-2.7b's shared block
+DECODE_SERVE = {"minitron": (4, 8, 3, 128), "moonshot": (4, 16, 1, 128), "zamba2": (4, 32, 1, 80)}
+
+
+def _decode_ref(q, kc, vc, lens):
+    """The plain version on the model layout: q [B, H, d], caches [B, S, K, d]."""
+    B, H, d = q.shape
+    S, K = kc.shape[1], kc.shape[2]
+    return flash_decode_ref(q.reshape(B * K, H // K, d),
+                            kc.permute(0, 2, 1, 3).reshape(B * K, S, d),
+                            vc.permute(0, 2, 1, 3).reshape(B * K, S, d),
+                            lens[:, None].expand(B, K).reshape(B * K)).reshape(B, H, d)
+
+
+@pytest.mark.parametrize("shape", list(DECODE_SERVE), ids=str)
+@pytest.mark.parametrize("n_split", [None, 1, 2, 16])
+def test_flash_decode_split_matches_plain_at_serve_shapes(cuda_device, shape, n_split):
+    """bf16 at each serve shape, split as the launcher picks (more than one
+    split each) and at other counts; per-sequence kv_len 0, mid-split, a
+    split boundary and the whole cache."""
+    B, K, r, d = DECODE_SERVE[shape]
+    S = 1024
+    rng = np.random.default_rng(K * r + d)
+    q = _rand(rng, (B, K * r, d), cuda_device, torch.bfloat16)
+    kc, vc = (_rand(rng, (B, S, K, d), cuda_device, torch.bfloat16) for _ in range(2))
+    n, rows = split_plan(B * K, S, torch.cuda.get_device_properties(0).multi_processor_count,
+                         n_split)
+    if n_split is None:
+        assert n > 1 and decode_path(q, kc) == "split"
+    lens = torch.tensor([0, rows // 2 + 1, rows, S], dtype=torch.int32, device=cuda_device)
+    path = "split" if n > 1 else "single"
+    before = k3.path_launches[path].count
+    out = flash_decode_cuda(q, kc, vc, lens, n_split=n_split)
+    torch.cuda.synchronize()
+    assert k3.path_launches[path].count == before + 1
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), _decode_ref(q, kc, vc, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_edges_and_large_groups(cuda_device, dtype):
+    """kv_len on each side of every split boundary, 0 and past S; r = 16 at
+    d = 256 and r = 5 at d = 64 (the wide-group kernel)."""
+    tol = TOL[dtype]
+    for (K, r, d) in ((1, 16, 256), (2, 5, 64)):
+        S = 512
+        rng = np.random.default_rng(r * d)
+        n, rows = split_plan(1, S, 132, 4)
+        lens_list = [0, 1, S, S + 7] + [b + o for b in range(rows, S, rows) for o in (-1, 0, 1)]
+        B = len(lens_list)
+        q = _rand(rng, (B, K * r, d), cuda_device, dtype)
+        kc, vc = (_rand(rng, (B, S, K, d), cuda_device, dtype) for _ in range(2))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=cuda_device)
+        for n_split in (None, 4):
+            out = flash_decode_cuda(q, kc, vc, lens, n_split=n_split)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), _decode_ref(q, kc, vc, lens).float(),
+                                       rtol=tol, atol=tol)
+
+
+def test_flash_decode_reads_strided_cache_views_and_repeats_bitwise(cuda_device):
+    """K and V as views of one [B, S, 2, K, d] buffer (strided rows), and a
+    cache longer than the live rows; two calls give the same bits."""
+    B, K, r, d, S = 4, 8, 3, 128, 1000
+    rng = np.random.default_rng(5)
+    kv = _rand(rng, (B, S, 2, K, d), cuda_device, torch.bfloat16)
+    kc, vc = kv[:, :, 0], kv[:, :, 1]
+    assert not kc.is_contiguous()
+    q = _rand(rng, (B, K * r, d), cuda_device, torch.bfloat16)
+    lens = torch.tensor([3, 500, 999, 1000], dtype=torch.int32, device=cuda_device)
+    first = flash_decode_cuda(q, kc, vc, lens)
+    second = flash_decode_cuda(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(first.float(), _decode_ref(q, kc, vc, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_decode_replays_from_a_cuda_graph(cuda_device):
+    """The decode call captured once (its workspace from the graph's pool)
+    and replayed after kv_len and the query change in place on the card
+    gives an eager call's bits: nothing of the call was read on the host."""
+    B, K, r, d, S = 4, 8, 3, 128, 1024
+    rng = np.random.default_rng(6)
+    q = _rand(rng, (B, K * r, d), cuda_device, torch.bfloat16)
+    kc, vc = (_rand(rng, (B, S, K, d), cuda_device, torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([1, 64, 700, 1024], dtype=torch.int32, device=cuda_device)
+    flash_decode_cuda(q, kc, vc, lens)               # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode_cuda(q, kc, vc, lens)
+    for new_lens in ([1024, 0, 129, 5], [300, 301, 128, 127]):
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        q.copy_(_rand(rng, (B, K * r, d), cuda_device, torch.bfloat16))
+        graph.replay()
+        eager = flash_decode_cuda(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 def test_attention_kernels_refuse_unsupported_head_dim(cuda_device):

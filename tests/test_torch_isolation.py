@@ -44,26 +44,36 @@ def _modules():
     return out
 
 
-def _run(code: str):
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+# subprocesses run single-threaded: six test workers share the CPU
+_ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@pytest.fixture(scope="module")
+def fresh_import():
+    """One fresh interpreter imports every module of the package with
+    ``jax``, ``jaxlib`` and ``repro`` made unimportable and with building or
+    loading a kernel turned into an error; the finished process."""
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "from repro_torch.kernels import _build\n"
+            "def refuse(*args, **kwargs):\n"
+            "    raise AssertionError('a kernel was built or loaded at import')\n"
+            "_build.build = _build.library = refuse\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not _build._libs\n")
+    env = {**os.environ, **_ONE_THREAD, "PYTHONPATH": str(ROOT / "src")}
     return subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
                           capture_output=True, text=True, timeout=300)
 
 
-def test_package_imports_without_jax():
-    modules = _modules()
-    code = ("import importlib, sys\n"
-            "for name in ('jax', 'jaxlib', 'repro'):\n"
-            "    sys.modules[name] = None\n"
-            f"for m in {modules!r}:\n"
-            "    importlib.import_module(m)\n"
-            "print(len(sys.modules))\n")
-    out = _run(code)
-    assert out.returncode == 0, out.stderr
-    assert len(modules) >= 20
+def test_package_imports_without_jax(fresh_import):
+    assert fresh_import.returncode == 0, fresh_import.stderr
+    assert len(_modules()) >= 20
 
 
-def test_kernel_modules_build_nothing_at_import():
+def test_kernel_modules_build_nothing_at_import(fresh_import):
     """Every module imports, the kernel launchers and the MoE model
     included, without building or loading a kernel: that waits for the
     first launch on the card."""
@@ -73,16 +83,7 @@ def test_kernel_modules_build_nothing_at_import():
     for name in ("models.ssm", "models.mamba_lm", "models.hybrid",
                  "kernels.ssd_scan.ssd_scan", "kernels.ssd_scan.ops"):
         assert f"repro_torch.{name}" in modules
-    code = ("import importlib\n"
-            "from repro_torch.kernels import _build\n"
-            "def refuse(*args, **kwargs):\n"
-            "    raise AssertionError('a kernel was built or loaded at import')\n"
-            "_build.build = _build.library = refuse\n"
-            f"for m in {modules!r}:\n"
-            "    importlib.import_module(m)\n"
-            "assert not _build._libs\n")
-    out = _run(code)
-    assert out.returncode == 0, out.stderr
+    assert fresh_import.returncode == 0, fresh_import.stderr
 
 
 @pytest.fixture
@@ -144,6 +145,7 @@ def test_chip_smoke_refuses_without_a_card():
             "sys.argv = ['chip_smoke.py']\n"
             f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='__main__')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env={**os.environ, **_ONE_THREAD},
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout

@@ -33,15 +33,17 @@ from repro.kernels.mandelbrot.ref import mandelbrot_ref as j_mandelbrot_ref  # n
 from repro_torch.core import strip_partition  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_lu import ops as lu_ops  # noqa: E402
-from repro_torch.kernels.block_lu.block_lu import bmod_cuda  # noqa: E402
+from repro_torch.kernels.block_lu.block_lu import bmod_cuda, bmod_path  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (HEAD_DIMS,  # noqa: E402
                                                             attention_path,
                                                             flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
-from repro_torch.kernels.flash_decode.flash_decode import flash_decode_cuda  # noqa: E402
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels.flash_decode.flash_decode import (decode_path,  # noqa: E402
+                                                           flash_decode_cuda, split_plan)
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,  # noqa: E402
+                                                  flash_decode_split_ref)
 from repro_torch.kernels.mandelbrot import ops as mb_ops  # noqa: E402
 from repro_torch.kernels.mandelbrot.mandelbrot import mandelbrot_rows_cuda  # noqa: E402
 
@@ -175,6 +177,88 @@ def test_flash_decode_plain_vs_pallas_and_oracle(dtype):
                            interpret=True), dtype)
     _check(port, j_decode_ref(jq, jk, jv, jnp.asarray(lens)), dtype)
     _check(port[0], jnp.broadcast_to(jv[0].astype(jnp.float32).mean(0), (3, 32)), dtype)
+
+
+# K3's split rule: S = 96 cut into splits of whole 16-row tiles, one cache row
+# per kv_len: 0 (the uniform mean), 1, each side of the 16/32/48-row split
+# boundaries, S and past S.  With n_split > 1 the short rows leave whole
+# splits past kv_len (kv_len = 1: every split but the first).
+SPLIT_S, SPLIT_TILE = 96, 16
+SPLIT_LENS = np.array([0, 1, 15, 16, 17, 31, 32, 33, 47, 48, 49, 95, 96, 97, 200], np.int32)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def decode_refs(request):
+    """Inputs of one dtype, with the Pallas kernel's (interpreted) and the
+    plain version's outputs on them, computed once for every split count."""
+    dtype, n = request.param, len(SPLIT_LENS)
+    (jq, jk, jv), (q, k, v) = _same_inputs(13, [(n, 3, 32), (n, SPLIT_S, 32),
+                                                (n, SPLIT_S, 32)], dtype)
+    pallas = np.asarray(pallas_fd(jq, jk, jv, jnp.asarray(SPLIT_LENS), block_kv=32,
+                                  interpret=True), np.float32)
+    lens = torch.from_numpy(SPLIT_LENS)
+    plain = flash_decode_ref(q, k, v, lens, block_kv=32).float().numpy()
+    return dtype, (q, k, v, lens), pallas, plain
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+def test_flash_decode_split_rule_vs_pallas_and_plain(decode_refs, n_split):
+    """Per-split online softmax, empty splits past kv_len, and the fold in
+    split order give the Pallas kernel's and the plain version's output."""
+    dtype, (q, k, v, lens), pallas, plain = decode_refs
+    port = flash_decode_split_ref(q, k, v, lens, n_split=n_split, tile=SPLIT_TILE)
+    assert port.dtype == q.dtype
+    _check(port, pallas, dtype)
+    _check(port, plain, dtype)
+    _check(port[0], v[0].float().mean(0).expand(3, -1).numpy(), dtype)
+
+
+@pytest.mark.parametrize("bk,S,n_split,plan", [
+    (32, 1024, None, (16, 64)),     # minitron-4b's decode: 4 sequences x 8 kv heads
+    (64, 1024, None, (8, 128)),     # moonshot-v1-16b-a3b: x 16 kv heads
+    (128, 1024, None, (8, 128)),    # zamba2-2.7b's shared block: x 32 heads
+    (32, 300, None, (5, 64)),       # a ragged cache: one split per 64-row unit
+    (32, 64, None, (1, 64)),        # one unit: nothing to split
+    (512, 1024, None, (8, 128)),    # enough CTAs, but no split past two units
+    (2048, 256, None, (2, 128)),    # the same
+    (4, 0, None, (1, 64)),          # an empty cache
+    (32, 1024, 3, (3, 384)),        # a count asked for
+    (32, 1024, 100, (16, 64)),      # at most one split per unit
+])
+def test_decode_split_plan(bk, S, n_split, plan):
+    """Splits are whole 64-row units, none past the cache, at most two units
+    long and about four CTAs per SM of an H100 (132), unless a count is
+    asked for."""
+    assert split_plan(bk, S, 132, n_split) == plan
+    n, rows = plan
+    assert (n - 1) * rows < max(S, 1) <= n * rows or S == 0
+
+
+def test_decode_path_is_chosen_from_shapes_alone():
+    """K3's path is planned up front from the shapes (meta tensors here, an
+    H100's SM count): minitron-4b's decode splits, a 64-row cache does not,
+    and a bad split count is refused."""
+    q = torch.empty(4, 24, 128, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(4, 1024, 8, 128, dtype=torch.bfloat16, device="meta")
+    assert decode_path(q, k) == "split"
+    assert decode_path(q, k, n_split=1) == "single"
+    assert decode_path(q, k[:, :64]) == "single"
+    for bad in (0, -1, 2.0):
+        with pytest.raises(ValueError, match="n_split"):
+            decode_path(q, k, n_split=bad)
+
+
+def test_bmod_path_follows_row_alignment():
+    """K2 stages with cp.async when l and u rows are whole 16-byte chunks
+    (every sparselu block, and the ragged 200 x 72 x 136 case), else with
+    plain loads."""
+    for (M, N, K), dtype in (((128, 128, 128), torch.float32), ((96, 96, 96), torch.float32),
+                             ((200, 72, 136), torch.float32), ((200, 72, 136), torch.bfloat16)):
+        l, u = torch.zeros(M, K, dtype=dtype), torch.zeros(K, N, dtype=dtype)
+        assert bmod_path(l, u) == "cp_async"
+    assert bmod_path(torch.zeros(5, 7), torch.zeros(7, 4)) == "elementwise"
+    shifted = torch.zeros(8 * 8 + 1)[1:].view(8, 8)
+    assert bmod_path(shifted, torch.zeros(8, 8)) == "elementwise"
 
 
 def test_gqa_wrappers_match_the_reference_wrappers():

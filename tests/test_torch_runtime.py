@@ -14,6 +14,8 @@ import repro.core as J
 import repro_torch.core as T
 from repro_torch.interop import from_numpy_tree, to_numpy_tree
 
+torch.set_num_threads(1)      # six test workers share the CPU
+
 SIZE = 1024
 
 
