@@ -98,10 +98,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 (NVIDIA data sheets, dense, no sparsity): the
 # SXM part, and the PCIe part when nvidia-smi names it.  fp32 is the CUDA
-# cores' rate; bf16 the tensor cores'.
+# cores' rate, which counts a fused multiply-add as two flops; bf16 the
+# tensor cores'.  fp32_unfused is the rate of separately rounded fp32
+# operations, one instruction slot each: half of fp32_flops.  K1 runs at it,
+# because it must not fuse (csrc/mandelbrot.cu: __fmul_rn/__fadd_rn; an FMA
+# rounds once where the reference rounds twice and flips boundary pixels).
 PEAKS = {
-    "sxm": {"fp32_flops": 67e12, "bf16_flops": 989e12, "hbm_Bps": 3.35e12},
-    "pcie": {"fp32_flops": 51e12, "bf16_flops": 756e12, "hbm_Bps": 2.0e12},
+    "sxm": {"fp32_flops": 67e12, "fp32_unfused": 33.5e12, "bf16_flops": 989e12,
+            "hbm_Bps": 3.35e12},
+    "pcie": {"fp32_flops": 51e12, "fp32_unfused": 25.5e12, "bf16_flops": 756e12,
+             "hbm_Bps": 2.0e12},
 }
 
 MANDEL_SIZE, MANDEL_ITER, MANDEL_DEVICES = 4600, 300, 8
@@ -168,6 +174,17 @@ SSD_SHAPES = ((4, 512, 80, 64, 1, 64, 256), (4, 512, 24, 64, 1, 128, 256),
 # upcasts of the same inputs rounded once to bf16 (the kernel's own
 # arithmetic); the fp32 final state elementwise (4e-2) against both.
 SSD_TOL = {"fp32": 1e-3, "bf16_rel_l2": 1e-2, "bf16": 4e-2}
+# K5 over cluster sizes and chunks per CTA (ssd_plan): (S, cluster asked;
+# None is the planner's own), at zamba2's and mamba2's widths (H, N), b = 2,
+# fp32 and bf16.  Plans: 64 → 1 CTA of one chunk; 300 → 2 of three or 5 of
+# one; 509 → 2 of four or 3 of three; 512 → 2 of four or 8 of one; 2048 → 8
+# of four; 4096 → 8 of eight.  Each case is also held against the kernel's
+# own decomposition on the CPU-tested plain ssd_cluster_ref (bf16 with its
+# hi/lo pairs, elementwise 4e-2; fp32 within SSD_TOL["fp32"]) and run twice
+# for the same bits.
+SSD_SWEEP = {"S": ((64, None), (300, None), (300, 5), (509, None), (509, 3), (512, None),
+                   (512, 8), (2048, None), (4096, None)),
+             "widths": ((80, 64), (24, 128)), "b": 2, "chunk": 256}
 HYBRID_ARCH, HYBRID_PARAMS = "zamba2-2.7b", 2_340_750_240
 SSM_ARCH, SSM_PARAMS = "mamba2-130m", 128_983_488
 STATE_LENS = (512, 509, 384, 300)       # continuous prompts, cycled over 8 requests
@@ -225,8 +242,8 @@ def _port_kernels() -> list:
     names = []
     for path in sorted(glob.glob(os.path.join(ROOT, "src", "repro_torch", "csrc", "*.cu"))):
         with open(path) as f:
-            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
-                                f.read())
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)"
+                                r"\s+)?(\w+)\s*\(", f.read())
     return names
 
 
@@ -278,7 +295,8 @@ def phase_card_and_build():
     t0 = time.perf_counter()
     report = _build.build(force=True, ptxas_verbose=True)
     seconds = time.perf_counter() - t0
-    hgmma = {name: _build.sass_count(name) for name in ("flash_attention", "grouped_matmul")}
+    hgmma = {name: _build.sass_count(name)
+             for name in ("flash_attention", "grouped_matmul", "ssd_scan")}
     emit({"phase": "build", "card": card, "seconds": seconds,
           "library_seconds": {name: r["seconds"] for name, r in report.items()},
           "hgmma_instructions": hgmma,
@@ -346,7 +364,8 @@ def phase_kernels(torch, peaks):
     strips_equal = bool(torch.equal(strips, img))
     k1_check_launches = k1mod.launches.count
     counts = float(img.to(torch.int64).sum())
-    k1_bound, k1_by = bound_ms(peaks, 4 * n + 4 * n * n, 8 * counts, "fp32_flops")
+    # 8 separately rounded fp32 operations per escape iteration
+    k1_bound, k1_by = bound_ms(peaks, 4 * n + 4 * n * n, 8 * counts, "fp32_unfused")
     k1 = {"name": "mandelbrot_rows", "shape": [n, n], "max_iter": MANDEL_ITER,
           "mismatch_share": mismatch, "tolerance": 0.005,
           "max_abs_err": k1_err, "strips_tile_image": strips_equal,
@@ -765,55 +784,92 @@ def _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype):
     return x.reshape(b, S, H, P), dt, A, B.reshape(b, S, G, N), C.reshape(b, S, G, N)
 
 
-def phase_ssd_kernel(torch, peaks):
-    """K5 against its plain version at the state serve paths' prefill
-    shapes, fp32 and bf16, with its time, the plain version's and its bound
-    at zamba2's and mamba2's shapes (bf16).  No single PyTorch call computes
-    the SSD scan, so there is no library time."""
+def _ssd_case(torch, args, chunk: int, cluster=None) -> dict:
+    """One K5 call against its plain version (the limits of SSD_TOL) and
+    against ssd_cluster_ref, run twice for the same bits."""
     from repro_torch.kernels.ssd_scan import ssd_scan as k5mod
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_cluster_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_path, ssd_plan, ssd_scan_cuda
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    k5mod.launches.reset()
-    cases, timed = [], []
+    x, B = args[0], args[3]
+    dtype = x.dtype
+    before = _path_counts(k5mod)
+    y, h = ssd_scan_cuda(*args, cluster=cluster)
+    y2, h2 = ssd_scan_cuda(*args, cluster=cluster)
+    torch.cuda.synchronize()
+    path = ssd_path(x, B)
+    moved = {p: n - before[p] for p, n in _path_counts(k5mod).items()}
+    yp, hp = ssd_chunked(*args, chunk=chunk)
+    bf16 = dtype == torch.bfloat16
+    yc, hc = ssd_cluster_ref(*args, cluster=cluster, split_bf16=bf16)
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
 
+    b_, S, H, P = x.shape
+    case = {"b": b_, "S": S, "H": H, "P": P, "G": B.shape[2], "N": B.shape[3],
+            "chunk": chunk, "dtype": str(dtype), "path": path,
+            "plan": list(ssd_plan(S, cluster)), "cluster_asked": cluster,
+            "max_abs_err": float((y.float() - yp.float()).abs().max()),
+            "h_max_abs_err": float((h - hp).abs().max()),
+            "y_rel_l2": rel(y, yp), "finite": bool(torch.isfinite(y).all()),
+            "cluster_ref_max_abs_err": float((y.float() - yc.float()).abs().max()),
+            "cluster_ref_h_max_abs_err": float((h - hc).abs().max()),
+            "bitwise_repeat": bool(torch.equal(y, y2) and torch.equal(h, h2))}
+    if bf16:
+        tol = SSD_TOL["bf16"]
+        y32, h32 = ssd_chunked(*(t.float() for t in args), chunk=chunk)
+        own = y32.to(dtype).float()
+        case["own_max_abs_err"] = float((y.float() - own).abs().max())
+        ok = (case["y_rel_l2"] <= SSD_TOL["bf16_rel_l2"]
+              and torch.allclose(y.float(), own, rtol=tol, atol=tol)
+              and torch.allclose(h, hp, rtol=tol, atol=tol)
+              and torch.allclose(h, h32, rtol=tol, atol=tol))
+        del y32, h32, own
+    else:
+        tol = SSD_TOL["fp32"]
+        ok = (torch.allclose(y, yp, rtol=tol, atol=tol)
+              and torch.allclose(h, hp, rtol=tol, atol=tol))
+    ok = ok and torch.allclose(y.float(), yc.float(), rtol=tol, atol=tol) \
+        and torch.allclose(h, hc, rtol=tol, atol=tol)
+    case["pass"] = bool(ok) and case["finite"] and case["bitwise_repeat"] \
+        and moved[path] == 2 and sum(moved.values()) == 2
+    return case
+
+
+def phase_ssd_kernel(torch, peaks):
+    """K5 against its plain version at the state serve paths' prefill
+    shapes and over SSD_SWEEP, fp32 and bf16, each call also against the
+    kernel's own decomposition (ssd_cluster_ref) and repeated for the same
+    bits; with its time, the plain version's and its bound at zamba2's and
+    mamba2's shapes (bf16).  No single PyTorch call computes the SSD scan,
+    so there is no library time."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as k5mod
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK, ssd_plan, ssd_scan_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _reset_counts(k5mod)
+    cases, timed = [], []
     for shape in SSD_SHAPES:
         b, S, H, P, G, N, chunk = shape
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype)
-            y, h = ssd_scan_cuda(*args)
-            torch.cuda.synchronize()
-            yp, hp = ssd_chunked(*args, chunk=chunk)
-            case = {"b": b, "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": chunk,
-                    "dtype": str(dtype), "max_abs_err": float((y.float() - yp.float()).abs().max()),
-                    "h_max_abs_err": float((h - hp).abs().max()),
-                    "y_rel_l2": rel(y, yp), "finite": bool(torch.isfinite(y).all())}
-            if dtype == torch.float32:
-                tol = SSD_TOL["fp32"]
-                ok = (torch.allclose(y, yp, rtol=tol, atol=tol)
-                      and torch.allclose(h, hp, rtol=tol, atol=tol))
-            else:
-                tol = SSD_TOL["bf16"]
-                y32, h32 = ssd_chunked(*(t.float() for t in args), chunk=chunk)
-                own = y32.to(dtype).float()
-                case["own_max_abs_err"] = float((y.float() - own).abs().max())
-                ok = (case["y_rel_l2"] <= SSD_TOL["bf16_rel_l2"]
-                      and torch.allclose(y.float(), own, rtol=tol, atol=tol)
-                      and torch.allclose(h, hp, rtol=tol, atol=tol)
-                      and torch.allclose(h, h32, rtol=tol, atol=tol))
-                del y32, h32, own
-                if shape in SSD_SHAPES[:2]:
-                    timed.append((shape, args, case["max_abs_err"]))
-            case["pass"] = bool(ok) and case["finite"]
-            cases.append(case)
-            del y, h, yp, hp
+            cases.append(_ssd_case(torch, args, chunk))
+            if dtype == torch.bfloat16 and shape in SSD_SHAPES[:2]:
+                timed.append((shape, args, cases[-1]["max_abs_err"], cases[-1]["path"]))
+    sweep = []
+    for H, N in SSD_SWEEP["widths"]:
+        for S, cluster in SSD_SWEEP["S"]:
+            for dtype in (torch.float32, torch.bfloat16):
+                args = _ssd_inputs(torch, gen, SSD_SWEEP["b"], S, H, 64, 1, N, dtype)
+                sweep.append(_ssd_case(torch, args, SSD_SWEEP["chunk"], cluster))
+                del args
+    torch.cuda.empty_cache()
     check_launches = k5mod.launches.count
+    check_paths = _path_counts(k5mod)
     timings = []
-    for (b, S, H, P, G, N, chunk), args, err in timed:
+    for (b, S, H, P, G, N, chunk), args, err, path in timed:
         es = 2                                       # bf16
         nbytes = (2 * b * S * H * P * es + b * H * N * P * 4 + b * S * H * 4
                   + 2 * b * S * G * N * es + H * 4)
@@ -822,8 +878,11 @@ def phase_ssd_kernel(torch, peaks):
             q = min(CHUNK, S - c0)
             flops += 2 * b * H * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P)
         bound, by = bound_ms(peaks, nbytes, flops, "bf16_flops")
+        n_cta, per = ssd_plan(S)
         timings.append({"b": b, "S": S, "H": H, "P": P, "G": G, "N": N, "dtype": "bfloat16",
-                        "max_abs_err": err, "bytes": nbytes, "flops": flops,
+                        "path": path, "ctas": n_cta * b * H, "cluster": n_cta,
+                        "chunks_per_cta": per, "max_abs_err": err, "bytes": nbytes,
+                        "flops": flops,
                         "ms": time_ms(torch, lambda: ssd_scan_cuda(*args), 20),
                         "plain_ms": time_ms(torch, lambda: ssd_chunked(*args, chunk=chunk), 2),
                         "library_ms": None, "bound_ms": bound, "bound_by": by})
@@ -831,14 +890,17 @@ def phase_ssd_kernel(torch, peaks):
     torch.cuda.empty_cache()
     main = timings[0]                     # zamba2-2.7b's prefill
     k5 = {"name": "ssd_scan", "kernel_chunk": CHUNK, "tolerance": SSD_TOL, "cases": cases,
-          "timings": timings, "check_launches": check_launches,
+          "sweep": sweep, "timings": timings, "check_launches": check_launches,
+          "check_path_launches": check_paths,
           "shape": {k: main[k] for k in ("b", "S", "H", "P", "G", "N", "dtype")},
-          **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by")},
-          "pass": all(c["pass"] for c in cases)}
+          **{k: main[k] for k in ("path", "ctas", "max_abs_err", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")},
+          "pass": all(c["pass"] for c in cases + sweep)}
     emit({"phase": "kernel_check", **k5})
     if not k5["pass"]:
-        fail(f"ssd_scan kernel disagrees with its plain version: {cases}")
+        bad = [c for c in cases + sweep if not c["pass"]]
+        fail(f"ssd_scan kernel disagrees with its plain version or its own decomposition, "
+             f"or repeats with other bits: {bad}")
     return k5
 
 
@@ -1094,6 +1156,15 @@ def _check_k3_paths(arch: str, runs: dict) -> None:
                  f"{r['flash_decode_paths']} by path; expected every one on split")
 
 
+def _check_k5_paths(arch: str, runs: dict) -> None:
+    """Every bf16 K5 launch of a serve phase (P = 64) took the tensor-core
+    path."""
+    for mode, r in runs.items():
+        if r["ssd_scan_paths"]["wgmma"] != r["ssd_scan_launches"]:
+            fail(f"{arch} {mode}: K5 launched {r['ssd_scan_launches']} times, "
+                 f"{r['ssd_scan_paths']} by path; expected every one on wgmma")
+
+
 def phase_serve_moe(torch):
     """moonshot-v1-16b-a3b at full width and depth (bf16, random weights
     from seed 0) served with the kernels: continuous mode, then wave mode,
@@ -1337,7 +1408,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
             "decode_s": sum(r.decode_s for r in res.values()),
             "ssd_scan_launches": k5n, "flash_attention_launches": k4n,
             "flash_decode_launches": k3n, "flash_attention_paths": _path_counts(k4mod),
-            "flash_decode_paths": _path_counts(k3mod),
+            "flash_decode_paths": _path_counts(k3mod), "ssd_scan_paths": _path_counts(k5mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
         if mode == "wave":
@@ -1433,6 +1504,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
         fail(f"wave {arch} serve launched K5/K4/K3 {got} times, expected {expect}")
     _check_k4_paths(arch, runs)
     _check_k3_paths(arch, runs)
+    _check_k5_paths(arch, runs)
     if not route["finite"] or max(route["prefill_rel_err"],
                                   route["decode_rel_err"]) > LOGITS_REL_TOL:
         fail(f"{arch}: kernel route disagrees with the plain route: {route}")
@@ -1512,7 +1584,7 @@ def main() -> int:
          "path_launches": served("flash_attention")[1]},
         {**k5, "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:26",
-         "launches": served("ssd_scan")[0]},
+         "launches": served("ssd_scan")[0], "path_launches": served("ssd_scan")[1]},
         {**k6, "route": "cuda", "source": "src/repro_torch/csrc/grouped_matmul.cu",
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:20",
          "launches": served("grouped_matmul")[0],

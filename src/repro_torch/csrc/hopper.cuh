@@ -1,9 +1,10 @@
 // hopper.cuh: the sm_90a building blocks of the tensor-core kernels
-// (flash_attention.cu, grouped_matmul.cu) and of the CUDA-core pipelines
-// (flash_decode.cu, block_lu.cu), as inline PTX.
+// (flash_attention.cu, grouped_matmul.cu, ssd_scan.cu) and of the CUDA-core
+// pipelines (flash_decode.cu, block_lu.cu), as inline PTX.
 //
-//  * cp.async: 16-byte global -> shared copies that bypass L1 and zero-fill
-//    past the bytes they are told to read, grouped and waited for by count;
+//  * cp.async: 16-byte global -> shared copies that bypass L1 (and 4-byte
+//    ones through it) and zero-fill past the bytes they are told to read,
+//    grouped and waited for by count;
 //  * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity;
 //  * TMA: tiled 3-D / 4-D loads into shared memory completing on an
 //    mbarrier, from a CUtensorMap passed by value as a __grid_constant__
@@ -11,6 +12,9 @@
 //    cuTensorMapEncodeTiled (looked up with dlsym in libcuda.so.1, which every
 //    process that uses the card has loaded, so nothing links against the
 //    driver);
+//  * thread-block clusters: the CTA's rank, distributed shared memory
+//    (mapa, a bulk copy into another CTA's shared memory completing on its
+//    mbarrier, a remote mbarrier arrival) and the cluster-wide barrier;
 //  * wgmma: shared-memory matrix descriptors for the 128-byte swizzle that
 //    the TMA writes, fence / commit / wait, and m64nNk16 bf16 products with
 //    fp32 accumulators, A from shared memory (ss) or registers (rs).
@@ -85,6 +89,76 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- thread-block clusters, distributed shared memory ----------------------
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of `p`'s offset in the shared memory of CTA `rank`
+__device__ __forceinline__ uint32_t map_shared(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// copy `bytes` (a multiple of 16) from this CTA's shared memory at `src` to
+// the shared::cluster address `dst` (another CTA's), completing as
+// transactions on the mbarrier at the shared::cluster address `bar` (in the
+// destination CTA); the source must stay unchanged until that completes
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src,
+                                                     uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// one arrival on an mbarrier at a shared::cluster address (another CTA's),
+// releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar_addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar_addr)
+               : "memory");
+}
+
+// mbar_wait with acquire at cluster scope, for a phase that another CTA
+// completes (the same trap after ~2^34 cycles)
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// the cluster barrier, every thread of every CTA: arrive, releasing this thread's writes
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+// ... and wait until all have arrived, acquiring what they released
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by st.shared or cp.async)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---- cp.async ------------------------------------------------------------
 // copy 16 bytes from global `src` to shared `dst` (both 16-byte aligned),
 // reading only the first `src_bytes` (0..16) and zero-filling the rest; with
@@ -92,6 +166,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// copy 4 bytes from global `src` to shared `dst` (both 4-byte aligned),
+// through L1, zero-filling when src_bytes = 0 (`src` must still be valid)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
                : "memory");
 }
 

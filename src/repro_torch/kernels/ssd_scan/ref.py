@@ -4,7 +4,8 @@ The port's own copy of the reference's jnp SSD: ``segsum`` and
 ``ssd_chunked`` (``repro/models/ssm.py``), which the reference's models run
 and which its Pallas kernel is held against, plus the kernel-layout
 ``ssd_scan_ref`` and the sequential recurrence ``ssd_naive_ref``
-(``repro/kernels/ssd_scan/ref.py``).
+(``repro/kernels/ssd_scan/ref.py``), and ``ssd_cluster_ref``, the CUDA
+kernel's own decomposition step by step.
 
 The dtypes are the reference's.  JAX promotes a bf16 operand against an
 fp32 one to fp32, and ``preferred_element_type=float32`` gives the scores in
@@ -167,3 +168,78 @@ def ssd_naive_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = h * a[:, None, None] + dt[:, t, None, None] * (B[:, t, :, None] * x[:, t, None, :])
         ys.append(torch.einsum("bn,bnp->bp", C[:, t], h))
     return torch.stack(ys, dim=1), h
+
+
+def _split_bf16(v: torch.Tensor) -> torch.Tensor:
+    """``v`` as the kernel hands a derived fp32 operand to the tensor cores:
+    a bf16 pair, hi = v rounded and lo = the rest rounded, summed exactly in
+    fp32 (within ~2^-16 of v)."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi + (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def ssd_cluster_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, *, cluster: Optional[int] = None,
+                    split_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's decomposition, step by step (tests and the card
+    checks only).  Model layout as :func:`ssd_chunked`, from a zero state.
+
+    The sequence is cut into the kernel's chunks of ``ssd_scan.CHUNK`` rows
+    (a ragged tail zero-padded), each with its own cumsum of dt·A; the
+    chunks go to the CTAs of one cluster in runs, as ``ssd_plan(S,
+    cluster)`` cuts them.  Per chunk: M = (C Bᵀ ⊙ L ⊙ dt) and y_intra = M x;
+    the chunk's state from zero s = Wᵀ x with W = B ⊙ exp(cum_last − cum) ⊙
+    dt; its decay a = exp(cum_last).  Per CTA, from zero: local = local·a +
+    s over its run, and the run's decay Π a.  The fold, in CTA order: h_in
+    of CTA 0 is zero, h_out = h_in·Π a + local is the next CTA's h_in, and
+    the last CTA's h_out is the final state.  Then each CTA walks its run
+    again from its h_in: y = y_intra + exp(cum)·(C h), h ← h·a + s.  With
+    ``split_bf16`` the three derived operands M, W and h enter their products
+    as bf16 hi/lo pairs (:func:`_split_bf16`), as on the kernel's tensor-core
+    path.  y is rounded once to x's dtype; the final state is fp32.
+    """
+    from .ssd_scan import CHUNK, ssd_plan
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    n_cta, per = ssd_plan(S, cluster)
+    Q = CHUNK
+    nc = max(1, -(-S // Q))
+    pad = nc * Q - S
+    f32 = torch.float32
+    op = _split_bf16 if split_bf16 else (lambda v: v)
+    xc = F.pad(x, (0, 0, 0, 0, 0, pad)).to(f32).reshape(b, nc, Q, H, P)
+    dtc = F.pad(dt, (0, 0, 0, pad)).reshape(b, nc, Q, H)
+    Bh = F.pad(B, (0, 0, 0, 0, 0, pad)).to(f32).reshape(b, nc, Q, G, N)
+    Ch = F.pad(C, (0, 0, 0, 0, 0, pad)).to(f32).reshape(b, nc, Q, G, N)
+    Bh = Bh.repeat_interleave(H // G, dim=3)                 # [b,nc,Q,H,N]
+    Ch = Ch.repeat_interleave(H // G, dim=3)
+
+    cum = cumsum(dtc * A, dim=2)                             # [b,nc,Q,H]
+    L = torch.exp(segsum((dtc * A).movedim(-1, -2)))         # [b,nc,H,Q,Q]
+    dts = dtc.movedim(-1, -2)[..., None, :]                  # dt_s, [b,nc,H,1,Q]
+    M = op(torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh) * L * dts)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
+    W = op(Bh * (torch.exp(cum[:, :, -1:] - cum) * dtc)[..., None])
+    s = torch.einsum("bcqhn,bcqhp->bchnp", W, xc)            # chunk states from zero
+    a = torch.exp(cum[:, :, -1])                             # [b,nc,H]
+
+    runs = [range(c * per, min((c + 1) * per, nc)) for c in range(n_cta)]
+    h = torch.zeros(b, H, N, P, dtype=f32, device=x.device)
+    h_in = []
+    for run in runs:                                         # the fold, in CTA order
+        local = torch.zeros_like(h)
+        decay = torch.ones(b, H, dtype=f32, device=x.device)
+        for k in run:
+            local = local * a[:, k, :, None, None] + s[:, k]
+            decay = decay * a[:, k]
+        h_in.append(h)
+        h = h * decay[..., None, None] + local
+    entering = []
+    for run, hr in zip(runs, h_in):                          # each run again from its h_in
+        for k in run:
+            entering.append(hr)
+            hr = hr * a[:, k, :, None, None] + s[:, k]
+    h_enter = op(torch.stack(entering, dim=1))               # [b,nc,H,N,P]
+    y_inter = torch.exp(cum)[..., None] * torch.einsum("bcqhn,bchnp->bcqhp", Ch, h_enter)
+    y = (y_intra + y_inter).reshape(b, nc * Q, H, P)[:, :S]
+    return y.to(x.dtype), h

@@ -36,8 +36,8 @@ from repro_torch.kernels.mandelbrot.ops import mandelbrot_rows
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
 from repro_torch.kernels.ssd_scan import ssd_scan as k5
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_cluster_ref
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_path, ssd_plan, ssd_scan_cuda
 from repro_torch.models import Model
 from repro_torch.models.moe import moe_apply
 from repro_torch.serve import Request, ServeConfig, ServeEngine
@@ -566,6 +566,57 @@ def test_ssd_scan_cuda_refuses_what_it_does_not_take(cuda_device):
         x2, dt2, A2, B2, C2 = ssd_inputs(gen, 1, 16, 2, P, 1, N, torch.float32, cuda_device)
         with pytest.raises(ValueError, match="not among"):
             ssd_scan_cuda(x2, dt2, A2, B2, C2)
+
+
+# (S, cluster asked): clusters of 1, 2, 3, 5 and 8 CTAs with one to eight
+# chunks each, ragged tails; zamba2's and mamba2's widths (H, N)
+SSD_SWEEP = [(64, None), (300, None), (300, 5), (509, None), (509, 3), (512, None),
+             (512, 8), (2048, None), (4096, None)]
+
+
+@pytest.mark.parametrize("S,cluster", SSD_SWEEP, ids=lambda v: str(v))
+@pytest.mark.parametrize("H,N", [(80, 64), (24, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_cuda_sweep_over_clusters(cuda_device, S, cluster, H, N, dtype):
+    """Every cluster size and run length against the plain version at the
+    limits of test_ssd_scan_cuda_matches_plain, and against the kernel's own
+    decomposition (ssd_cluster_ref: bf16 with its hi/lo pairs, 4e-2
+    elementwise; fp32 1e-3), on the path ssd_path names."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + N)
+    args = ssd_inputs(gen, 2, S, H, 64, 1, N, dtype, cuda_device)
+    path = ssd_path(args[0], args[3])
+    assert path == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    before = k5.path_launches[path].count
+    y, h = ssd_scan_cuda(*args, cluster=cluster)
+    torch.cuda.synchronize()
+    assert k5.path_launches[path].count == before + 1
+    assert ssd_plan(S, cluster)[0] <= 8
+    yp, hp = ssd_chunked(*args, chunk=256)
+    yc, hc = ssd_cluster_ref(*args, cluster=cluster, split_bf16=dtype == torch.bfloat16)
+    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    torch.testing.assert_close(y.float(), yc.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, hc, rtol=tol, atol=tol)
+    torch.testing.assert_close(h, hp, rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=tol, atol=tol)
+    else:
+        rel = float((y.float() - yp.float()).norm() / yp.float().norm())
+        assert rel <= 1e-2, rel
+        y32, _ = ssd_chunked(*(t.float() for t in args), chunk=256)
+        torch.testing.assert_close(y.float(), y32.to(dtype).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_cuda_repeats_bitwise(cuda_device, dtype):
+    """The fold runs in cluster order, without atomics: the same inputs give
+    the same bits, call after call, at every cluster size."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    args = ssd_inputs(gen, 4, 509, 80, 64, 1, 64, dtype, cuda_device)
+    for cluster in (None, 1, 3, 8):
+        y, h = ssd_scan_cuda(*args, cluster=cluster)
+        for _ in range(3):
+            y2, h2 = ssd_scan_cuda(*args, cluster=cluster)
+            assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-130m"])
