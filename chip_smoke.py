@@ -34,7 +34,11 @@ runs, printing one JSON line per phase:
 5. BOTS sparselu: the ``nowait``/``resident`` wavefront on 4 virtual devices
    for K=16, B=128 (a 2048² fp32 matrix, 1,496 tasks, 1,240 bmod launches)
    and for K=5, B=96, against the serial kernel, with the residual
-   ‖L·U − A‖/‖A‖ in float64;
+   ‖L·U − A‖/‖A‖ in float64; then BOTS fib(21) (``recursive_offload``, one
+   busy-loop kernel launch per leaf) and alignment (128 queries x 32
+   references, the bank resident, query strips) on 8 virtual devices, each
+   equal to its serial run bit for bit, after the busy-loop kernel against
+   its plain version (a host loop) at fib(8) and fib(15);
 6. LM serving: minitron-4b at full width (32 layers, d_model 3072, bf16,
    random weights from seed 0) with the kernels on: 8 requests of 512
    tokens in continuous mode, then 4 in wave mode (one unpadded prefill:
@@ -64,6 +68,15 @@ runs, printing one JSON line per phase:
    greedy tokens must be equal on both routes; then mamba2-130m at its full
    config (24 layers, N = 128), one continuous and one wave run, its fp32
    greedy tokens equal on both routes.
+
+Every serve phase decodes through captured CUDA graphs (``serve/graph.py``),
+and reports per mode the graphs captured, the replays and the decode seconds
+per step; it then serves its wave once more on the eager route
+(``eager=True``), whose launch counts per kernel and per path must equal the
+captured wave's, replays one bf16 decode step captured against the same
+step run eagerly (the logits' difference reported), and holds the fp32
+model's greedy tokens on the captured route equal to the eager route's in
+both modes.
 
 Phase 2 also holds the grouped-matmul kernel against its plain version at
 the MoE path's shapes, beside ``torch.bmm`` as the library yardstick (also at
@@ -120,6 +133,12 @@ DECODE_MAIN = (32, 3, 1024, 128)        # K3: (B·K, r, S, d)
 DECODE_LENS = (0, 1, 2, 17, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 300,
                383, 384, 500, 511, 512, 513, 576, 640, 700, 767, 768, 800, 900,
                1000, 1023, 1024, 31)    # per-row kv_len, one per B·K row
+# back-to-back replays of one captured decode step, timed with CUDA events
+REPLAY_REPS = 10
+# BOTS fib and alignment ("large") on this many virtual devices; the fib
+# leaf kernel is checked at the small size's root and at a leaf of that run
+BOTS_DEVICES = 8
+FIB_CHECK_N = (8, 15)
 SERVE_ARCH, SERVE_BATCH, SERVE_MAX_LEN, SERVE_PROMPT = "minitron-4b", 4, 1024, 512
 SERVE_BUDGETS = (16, 32, 48, 64)        # max_new_tokens, cycled over the requests
 WAVE_BUDGET = 32
@@ -252,19 +271,8 @@ def device_busy(torch, fn) -> dict:
     report the union of the device intervals it recorded — kernels and
     copies — against that run's wall time: the card's busy share.  The
     profiled run is not the timed one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
+    from repro_torch.serve.wave_timing import profiled
+    events, wall, busy_s = profiled(fn)
     by_name: dict = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -277,8 +285,8 @@ def device_busy(torch, fn) -> dict:
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + us * 1e-6
     return {"profiled_wall_s": wall, "device_events": len(events),
-            "device_busy_s": busy_us * 1e-6 if events else None,
-            "device_busy_share": busy_us * 1e-6 / wall if events else None,
+            "device_busy_s": busy_s if events else None,
+            "device_busy_share": busy_s / wall if events else None,
             "top_device_s": {name[:60]: us * 1e-6 for name, us in top},
             "port_kernel_s": ours}
 
@@ -770,6 +778,124 @@ def _path_counts(mod) -> dict:
     return {p: c.count for p, c in mod.path_launches.items()}
 
 
+def _kernel_counts(mods) -> dict:
+    """Each kernel module's launches and launches per path, under the keys
+    the serve phases' rows use ("flash_decode_launches", ...)."""
+    out = {}
+    for m in mods:
+        name = m.__name__.rsplit(".", 1)[-1]
+        out[f"{name}_launches"] = m.launches.count
+        out[f"{name}_paths"] = _path_counts(m)
+    return out
+
+
+def _graph_stats(eng, run: dict) -> None:
+    """Add a captured serve's graph count, replays and decode seconds per
+    step to its row (each graph's first step ran eagerly as its warm-up)."""
+    st = eng.graph_stats
+    run.update({"graphs_captured": st["graphs"], "graph_replays": st["replays"],
+                "decode_steps": st["decodes"],
+                "decode_s_per_step": run["decode_s"] / st["decodes"] if st["decodes"] else None})
+
+
+def _eager_wave(torch, model, params, reqs, mods, captured: dict, captured_tokens: dict,
+                budget: int) -> dict:
+    """The wave served once more on the eager route (``eager=True``), its
+    launch counts set to 0 just before: its tokens, launch counts per kernel
+    and per path, and decode seconds per step beside the captured wave's."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                                                 mode="wave"), eager=True)
+    _reset_counts(*mods)
+    t0 = time.perf_counter()
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts(mods)
+    decode_s = sum(r.decode_s for r in res.values())
+    tokens = sum(len(r.tokens) for r in res.values())
+    return {"wall_s": wall, "tokens_per_s": tokens / wall,
+            "prefill_s": sum(r.prefill_s for r in res.values()), "decode_s": decode_s,
+            "decode_s_per_step": decode_s / (budget - 1),
+            "captured_decode_s_per_step": captured["decode_s_per_step"],
+            "tokens_equal_captured": {r.rid: r.tokens for r in res.values()}
+            == captured_tokens,
+            "counts_equal_captured": counts == {k: captured[k] for k in counts},
+            **counts}
+
+
+def _clone_tree(tree):
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
+
+
+def _copy_tree(dst, src) -> None:
+    if isinstance(dst, (tuple, dict)):
+        keys = range(len(dst)) if isinstance(dst, tuple) else dst
+        for k in keys:
+            _copy_tree(dst[k], src[k])
+    elif dst is not None:
+        dst.copy_(src)
+
+
+def _captured_vs_eager_logits(torch, model, params, tok, cache, pos: int) -> dict:
+    """One decode step from ``cache`` (left as it was), eagerly and as a
+    captured graph replayed from the same state: the logits' largest
+    difference (0 expected: the same kernels on the same inputs; cuBLAS may
+    pick another algorithm inside a capture)."""
+    from repro_torch.serve.graph import CapturedStep
+    posv = torch.full((tok.shape[0],), pos, dtype=torch.int32, device=tok.device)
+    work = _clone_tree(cache)
+    eager = model.decode_step(params, tok, work, posv)[0].clone()
+    eager_cache = _clone_tree(work)
+    _copy_tree(work, cache)
+    step = CapturedStep(lambda: model.decode_step(params, tok, work, posv)[0], tok.device)
+    step()                                  # the warm-up: a real step on `work`
+    _copy_tree(work, cache)
+    graph = step()
+    torch.cuda.synchronize()
+    cache_diff = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(_leaves(work), _leaves(eager_cache)))
+    row = {"logits_max_abs_diff": float((graph.float() - eager.float()).abs().max()),
+           "cache_max_abs_diff": cache_diff}
+    # the replayed step alone: its span on the card (CUDA events around
+    # REPLAY_REPS back-to-back replays) and its kernels and their busy time
+    # (one profiled replay); the span less the busy time is the card idle
+    # between the graph's kernels
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPLAY_REPS):
+        step()
+    end.record()
+    end.synchronize()
+    prof = device_busy(torch, step)
+    row.update({"replay_span_ms": start.elapsed_time(end) / REPLAY_REPS,
+                "replay_kernels": prof["device_events"],
+                "replay_busy_ms": prof["device_busy_s"] * 1e3,
+                "replay_top_device_s": prof["top_device_s"]})
+    return row
+
+
+def _fp32_eager_vs_captured(torch, cfg32, params32, reqs_by_mode, max_len: int) -> dict:
+    """fp32 greedy tokens of the kernel route, eager against captured, per
+    mode (gated: equal)."""
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeConfig, ServeEngine
+    equal = {}
+    for mode, rs in reqs_by_mode.items():
+        got = {}
+        for eager in (True, False):
+            eng = ServeEngine(Model(cfg32.replace(use_kernels=True)), params32,
+                              ServeConfig(batch=SERVE_BATCH, max_len=max_len, mode=mode),
+                              eager=eager)
+            got[eager] = {rid: r.tokens for rid, r in eng.serve(rs).items()}
+        equal[mode] = got[True] == got[False]
+    return equal
+
+
 def _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype):
     """x, B, C as the Mamba2 mixer hands them to K5: slices of one [b, S,
     H·P + 2·G·N] projection, read in place with its strides; dt =
@@ -1022,6 +1148,109 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int):
     return launches, paths
 
 
+def phase_fib_alignment(torch, peaks):
+    """BOTS fib and alignment at the reference's "large" size on
+    ``BOTS_DEVICES`` virtual devices, each against its serial run (bit for
+    bit); before them the busy-loop kernel (the fib leaf) against its plain
+    version at leaf sizes of that run, and its time.  The busy-loop launch
+    count is set to 0 just before the offloaded fib and read just after."""
+    from repro_torch.bots import alignment as ba
+    from repro_torch.bots import fib as bf
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.kernels.busy_loop import busy_loop as kb
+    from repro_torch.kernels.busy_loop.busy_loop import fib_subtree_cuda
+    from repro_torch.kernels.busy_loop.ref import LANES, busy_iters, fib_f32, fib_subtree_ref
+
+    dev = torch.device("cuda", 0)
+    cases = []
+    for n in FIB_CHECK_N:
+        out, acc = fib_subtree_cuda(torch.tensor(n, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_out, ref_acc = fib_subtree_ref(torch.tensor(n, dtype=torch.int32))
+        plain_s = time.perf_counter() - t0
+        cases.append({"n": n, "iters": busy_iters(fib_f32(n)), "out": float(out),
+                      "max_abs_err": max(float((out.cpu() - ref_out).abs()),
+                                         float((acc.cpu() - ref_acc).abs().max())),
+                      "bitwise": bool(torch.equal(out.cpu(), ref_out)
+                                      and torch.equal(acc.cpu(), ref_acc)),
+                      "plain_ms": plain_s * 1e3})
+    main = cases[-1]
+    n_main = torch.tensor(main["n"], dtype=torch.int32, device=dev)
+    # two separately rounded fp32 operations per step and lane; 4 bytes in,
+    # 4 + 4 * LANES out
+    kb_bound, kb_by = bound_ms(peaks, 4 + 4 + 4 * LANES, 2.0 * LANES * main["iters"],
+                               "fp32_unfused")
+    n_top = bf.SIZES["large"]
+    n_dev = {n: torch.tensor(n, dtype=torch.int32, device=dev) for n in (18, n_top)}
+    timed = {n: time_ms(torch, lambda t=t: fib_subtree_cuda(t), 3) for n, t in n_dev.items()}
+    kbusy = {"name": "fib_subtree", "cases": cases, "lanes": LANES, "n": main["n"],
+             "iters": main["iters"], "max_abs_err": max(c["max_abs_err"] for c in cases),
+             "ms": time_ms(torch, lambda: fib_subtree_cuda(n_main), 5),
+             "ms_by_n": timed, "plain_ms": main["plain_ms"],
+             "plain_device": "cpu (the plain version is a host loop)",
+             "library_ms": None, "bound_ms": kb_bound, "bound_by": kb_by,
+             "pass": all(c["bitwise"] for c in cases)}
+    emit({"phase": "kernel_check", **kbusy})
+    if not kbusy["pass"]:
+        fail(f"busy-loop kernel disagrees with its plain version: {cases}")
+
+    rows = {}
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=BOTS_DEVICES), table=bf._make_table(),
+                        device="cuda")
+    try:
+        kb.launches.reset()
+        t0 = time.perf_counter()
+        got = bf.offloaded(rt, n_top)
+        wall = time.perf_counter() - t0
+        launches = kb.launches.count
+        s = rt.cost.summary()
+        ser = bf.serial(rt, n_top)
+        busy = device_busy(torch, lambda: bf.offloaded(rt, n_top))
+    finally:
+        rt.shutdown()
+    rows["fib"] = {"n": n_top, "wall_s": wall, "result": float(got),
+                   "equal_serial": bool(torch.equal(got, ser)),
+                   "leaf_launches": launches, "bytes_to": s["bytes_to"],
+                   "bytes_from": s["bytes_from"], "modeled_makespan_s": s["makespan_s"],
+                   "compute_s": s["compute_s"], "profiled": busy}
+    fib = [0, 1]
+    while len(fib) <= n_top:
+        fib.append(fib[-1] + fib[-2])
+
+    m, R = ba.SIZES["large"]
+    data = ba._data(m, R)
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=BOTS_DEVICES), table=ba._make_table(),
+                        device="cuda")
+    try:
+        t0 = time.perf_counter()
+        got = ba.offloaded(rt, *data)
+        wall = time.perf_counter() - t0
+        s = rt.cost.summary()
+        ser = ba.serial(rt, *data)
+        busy = device_busy(torch, lambda: ba.offloaded(rt, *data))
+    finally:
+        rt.shutdown()
+    host = ba.align_scores(*data)                 # the same ops on the host
+    rows["alignment"] = {"queries": m, "refs": R, "wall_s": wall,
+                         "equal_serial": bool(torch.equal(got, ser)),
+                         "max_abs_err_vs_host": float((got - host).abs().max()),
+                         "tolerance": 2e-5, "finite": bool(torch.isfinite(got).all()),
+                         "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
+                         "modeled_makespan_s": s["makespan_s"], "compute_s": s["compute_s"],
+                         "profiled": busy}
+    emit({"phase": "bots_fib_alignment", "devices": BOTS_DEVICES, **rows})
+    f, a = rows["fib"], rows["alignment"]
+    if not (f["equal_serial"] and f["result"] == fib[n_top]):
+        fail(f"fib({n_top}) offloaded {f['result']} vs serial, expected {fib[n_top]}: {f}")
+    if launches != BOTS_DEVICES:
+        fail(f"fib launched the busy-loop kernel {launches} times, expected one per leaf "
+             f"({BOTS_DEVICES})")
+    if not (a["equal_serial"] and a["finite"]) or a["max_abs_err_vs_host"] > 2e-5:
+        fail(f"alignment strips differ from the serial run or the host's scores: {a}")
+    return kbusy, launches
+
+
 def phase_serve(torch):
     """minitron-4b at full width (bf16, random weights from seed 0) served
     with the kernels: continuous mode, then wave mode, each with the launch
@@ -1070,10 +1299,15 @@ def phase_serve(torch):
             "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
+        _graph_stats(eng, runs[mode])
         if mode == "wave":
             wave_engine = eng
+            wave_tokens = {rid: r.tokens for rid, r in res.items()}
     peak = torch.cuda.max_memory_allocated()
     busy = device_busy(torch, lambda: wave_engine.serve(wave_reqs))
+    del wave_engine, eng
+    eager_wave = _eager_wave(torch, model, params, wave_reqs, (k4mod, k3mod), runs["wave"],
+                             wave_tokens, WAVE_BUDGET)
 
     # kernel route against plain route on the same weights
     plain = Model(cfg.replace(use_kernels=False))
@@ -1081,6 +1315,7 @@ def phase_serve(torch):
     lk, ck, pos = model.prefill(params, batch, cache_len=SERVE_MAX_LEN)
     lp, cp, _ = plain.prefill(params, batch, cache_len=SERVE_MAX_LEN)
     tok = torch.argmax(lp[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+    graph_vs_eager = _captured_vs_eager_logits(torch, model, params, tok, ck, pos)
     dk, _ = model.decode_step(params, tok, ck, pos)
     dp, _ = plain.decode_step(params, tok, cp, pos)
     del ck, cp
@@ -1097,7 +1332,8 @@ def phase_serve(torch):
     del params, model, plain
     torch.cuda.empty_cache()
 
-    # full width, 2 layers, fp32, wave mode: kernel route tokens == plain route's
+    # full width, 2 layers, fp32: kernel route tokens == plain route's (wave
+    # mode), and the captured route's == the eager route's (both modes)
     cfg2 = get_config(SERVE_ARCH).replace(n_layers=2, param_dtype="float32",
                                           compute_dtype="float32")
     params2 = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
@@ -1107,7 +1343,9 @@ def phase_serve(torch):
         eng = ServeEngine(Model(cfg2.replace(use_kernels=use)), params2,
                           ServeConfig(batch=4, max_len=256, mode="wave"))
         fp32_tokens[use] = {rid: r.tokens for rid, r in eng.serve(small).items()}
-    del params2
+    fp32_graph = _fp32_eager_vs_captured(torch, cfg2, params2, {
+        "wave": small, "continuous": _ragged(prompts, 128, 16)}, 256)
+    del params2, eng
     torch.cuda.empty_cache()
 
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -1116,10 +1354,13 @@ def phase_serve(torch):
            "params": n_params, "init_s": init_s, **{m: r for m, r in runs.items()},
            "peak_allocated_bytes": peak, "card_bytes": card_bytes,
            "weights_bytes": 2 * n_params, "kv_cache_bytes": kv_bytes,
-           "profiled_wave": busy, "kernel_vs_plain": route,
-           "fp32_2layer_tokens_equal": fp32_tokens[True] == fp32_tokens[False]}
+           "profiled_wave": busy, "kernel_vs_plain": route, "eager_wave": eager_wave,
+           "captured_vs_eager_bf16": graph_vs_eager,
+           "fp32_2layer_tokens_equal": fp32_tokens[True] == fp32_tokens[False],
+           "fp32_2layer_captured_tokens_equal_eager": fp32_graph}
     emit(row)
     c, w = runs["continuous"], runs["wave"]
+    _check_captured(SERVE_ARCH, runs, eager_wave, fp32_graph)
     if not (c["full_budgets"] and w["full_budgets"]):
         fail("a request did not get its full token budget")
     if c["flash_decode_launches"] == 0 or c["flash_decode_launches"] % L:
@@ -1136,6 +1377,30 @@ def phase_serve(torch):
     if not row["fp32_2layer_tokens_equal"]:
         fail("fp32 kernel-route tokens differ from the plain route's")
     return runs
+
+
+def _ragged(prompts, longest: int, budget: int) -> list:
+    """Requests of ragged prompts (longest, longest - 16, ...; cycled) for
+    the fp32 continuous runs: pad-masked prefills and masked decodes."""
+    from repro_torch.serve import Request
+    return [Request(i, p[:longest - 16 * (i % 4)], max_new_tokens=budget)
+            for i, p in enumerate(prompts)]
+
+
+def _check_captured(arch: str, runs: dict, eager_wave: dict, fp32_graph: dict) -> None:
+    """Every decode of a serve phase after a signature's first replayed a
+    graph; the eager wave launched what the captured wave did, per kernel
+    and per path; fp32 captured tokens equal the eager route's."""
+    for mode, r in runs.items():
+        if (not r["graph_replays"]
+                or r["decode_steps"] != r["graphs_captured"] + r["graph_replays"]):
+            fail(f"{arch} {mode}: {r['decode_steps']} decode steps, {r['graphs_captured']} "
+                 f"graphs captured, {r['graph_replays']} replays")
+    if not eager_wave["counts_equal_captured"]:
+        fail(f"{arch}: the eager wave's launch counts differ from the captured wave's: "
+             f"{eager_wave}")
+    if not all(fp32_graph.values()):
+        fail(f"{arch}: fp32 captured-route tokens differ from the eager route's: {fp32_graph}")
 
 
 def _check_k4_paths(arch: str, runs: dict) -> None:
@@ -1220,11 +1485,15 @@ def phase_serve_moe(torch):
             "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
+        _graph_stats(eng, runs[mode])
         if mode == "wave":
             wave_engine = eng
+            wave_tokens = {rid: r.tokens for rid, r in res.items()}
     peak = torch.cuda.max_memory_allocated()
     busy = device_busy(torch, lambda: wave_engine.serve(wave_reqs))
     del wave_engine, eng
+    eager_wave = _eager_wave(torch, model, params, wave_reqs, mods, runs["wave"], wave_tokens,
+                             MOE_WAVE_BUDGET)
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
@@ -1269,6 +1538,8 @@ def phase_serve_moe(torch):
         pre_p, cp, _ = plain.prefill(params, batch, cache_len=SERVE_MAX_LEN)
         sets_pre_p, chosen[:] = list(chosen), []
         tok = torch.argmax(pre_p[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+        graph_vs_eager = _captured_vs_eager_logits(torch, model, params, tok, ck, pos)
+        chosen[:] = []
         dec_k, _ = model.decode_step(params, tok, ck, pos)
         sets_dec_k, chosen[:] = list(chosen), []
         dec_p, _ = plain.decode_step(params, tok, cp, pos)
@@ -1301,6 +1572,8 @@ def phase_serve_moe(torch):
         eng = ServeEngine(Model(cfg2.replace(use_kernels=use)), params2,
                           ServeConfig(batch=4, max_len=256, mode="wave"))
         fp32_tokens[use] = {rid: r.tokens for rid, r in eng.serve(small).items()}
+    fp32_graph = _fp32_eager_vs_captured(torch, cfg2, params2, {
+        "wave": small, "continuous": _ragged(prompts, 128, 16)}, 256)
     del params2, eng
     torch.cuda.empty_cache()
 
@@ -1312,9 +1585,12 @@ def phase_serve_moe(torch):
            "card_bytes": card_bytes, "weights_bytes": 2 * n_params,
            "kv_cache_bytes": kv_bytes, "profiled_wave": busy,
            "moe_layer_kernel_vs_plain": layer, "kernel_vs_plain": route,
-           "fp32_2layer_tokens_equal": fp32_tokens[True] == fp32_tokens[False]}
+           "eager_wave": eager_wave, "captured_vs_eager_bf16": graph_vs_eager,
+           "fp32_2layer_tokens_equal": fp32_tokens[True] == fp32_tokens[False],
+           "fp32_2layer_captured_tokens_equal_eager": fp32_graph}
     emit(row)
     c, w = runs["continuous"], runs["wave"]
+    _check_captured(MOE_ARCH, runs, eager_wave, fp32_graph)
     if n_params != MOE_PARAMS:
         fail(f"{MOE_ARCH} has {n_params} parameters, expected {MOE_PARAMS}")
     if not (c["full_budgets"] and w["full_budgets"]):
@@ -1411,11 +1687,15 @@ def phase_serve_state(torch, arch: str, expect_params: int):
             "flash_decode_paths": _path_counts(k3mod), "ssd_scan_paths": _path_counts(k5mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
+        _graph_stats(eng, runs[mode])
         if mode == "wave":
             wave_engine = eng
+            wave_tokens = {rid: r.tokens for rid, r in res.items()}
     peak = torch.cuda.max_memory_allocated()
     busy = device_busy(torch, lambda: wave_engine.serve(wave_reqs))
     del wave_engine, eng
+    eager_wave = _eager_wave(torch, model, params, wave_reqs, mods, runs["wave"], wave_tokens,
+                             STATE_WAVE_BUDGET)
 
     # kernel route against plain route on the same weights
     plain = Model(cfg.replace(use_kernels=False))
@@ -1423,6 +1703,7 @@ def phase_serve_state(torch, arch: str, expect_params: int):
     lk, ck, pos = model.prefill(params, batch, cache_len=SERVE_MAX_LEN)
     lp, cp, _ = plain.prefill(params, batch, cache_len=SERVE_MAX_LEN)
     tok = torch.argmax(lp[:, -1].float(), dim=-1).to(torch.int32)[:, None]
+    graph_vs_eager = _captured_vs_eager_logits(torch, model, params, tok, ck, pos)
     dk, _ = model.decode_step(params, tok, ck, pos)
     dp, _ = plain.decode_step(params, tok, cp, pos)
     del ck, cp
@@ -1456,14 +1737,16 @@ def phase_serve_state(torch, arch: str, expect_params: int):
         cfg32 = cfg32.replace(n_layers=cfg.hybrid_group)
     params32 = Model(cfg32).init(torch.Generator("cuda").manual_seed(0))
     fp32_equal = {}
+    reqs16 = {}
     for mode, rs in (("wave", wave_reqs), ("continuous", reqs)):
-        rs16 = [Request(r.rid, r.prompt, max_new_tokens=16) for r in rs]
+        reqs16[mode] = rs16 = [Request(r.rid, r.prompt, max_new_tokens=16) for r in rs]
         got = {}
         for use in (True, False):
             eng = ServeEngine(Model(cfg32.replace(use_kernels=use)), params32,
                               ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, mode=mode))
             got[use] = {rid: r.tokens for rid, r in eng.serve(rs16).items()}
         fp32_equal[mode] = got[True] == got[False]
+    fp32_graph = _fp32_eager_vs_captured(torch, cfg32, params32, reqs16, SERVE_MAX_LEN)
     del params32, eng
     torch.cuda.empty_cache()
 
@@ -1480,10 +1763,13 @@ def phase_serve_state(torch, arch: str, expect_params: int):
            if hybrid else 0,
            "ssm_state_bytes": L * SERVE_BATCH * H * s.d_state * s.head_dim * 4,
            "conv_state_bytes": L * SERVE_BATCH * (s.d_conv - 1) * conv_ch * 2,
-           "profiled_wave": busy, "kernel_vs_plain": route,
-           "fp32_layers": cfg32.n_layers, "fp32_tokens_equal": fp32_equal}
+           "profiled_wave": busy, "kernel_vs_plain": route, "eager_wave": eager_wave,
+           "captured_vs_eager_bf16": graph_vs_eager,
+           "fp32_layers": cfg32.n_layers, "fp32_tokens_equal": fp32_equal,
+           "fp32_captured_tokens_equal_eager": fp32_graph}
     emit(row)
     c, w = runs["continuous"], runs["wave"]
+    _check_captured(arch, runs, eager_wave, fp32_graph)
     if n_params != expect_params:
         fail(f"{arch} has {n_params} parameters, expected {expect_params}")
     if not (c["full_budgets"] and w["full_budgets"]):
@@ -1524,9 +1810,11 @@ def _to_float(tree):
 
 
 def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in _leaves(t)]
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def main() -> int:
@@ -1552,6 +1840,7 @@ def main() -> int:
     k1_launches = phase_mandelbrot(torch)
     k2_launches, k2_paths = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
+    kbusy, kbusy_launches = phase_fib_alignment(torch, peaks)
     serve_runs = [*phase_serve(torch).values(), *phase_serve_moe(torch).values()]
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
         serve_runs += phase_serve_state(torch, arch, n).values()
@@ -1589,6 +1878,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/grouped_matmul/grouped_matmul.py:20",
          "launches": served("grouped_matmul")[0],
          "path_launches": served("grouped_matmul")[1]},
+        # a port-only kernel: the reference's busy loop is XLA's fori_loop
+        {**kbusy, "route": "cuda", "source": "src/repro_torch/csrc/busy_loop.cu",
+         "replaces": "benchmarks/bots_fib.py:44", "launches": kbusy_launches},
     ]
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

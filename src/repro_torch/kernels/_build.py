@@ -13,6 +13,12 @@ A missing ``nvcc`` or a failed build raises — there is no fallback.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error
 (a refused launch never runs, and a later synchronize would not report it).
+
+Every wrapper counts its launches in a :class:`LaunchCounter`.  A CUDA graph
+replays kernels without calling the wrappers, so whoever captures one takes
+the counters' change over the capture (:func:`launch_counts`,
+:func:`counts_since`), takes it back out (the capture ran nothing) and adds
+it again at each replay (:func:`add_counts`).
 """
 from __future__ import annotations
 
@@ -23,18 +29,20 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mandelbrot", "block_lu", "flash_attention", "flash_decode",
-           "grouped_matmul", "ssd_scan")
+           "grouped_matmul", "ssd_scan", "busy_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+_counters: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
 
 
 class LaunchCounter:
@@ -44,10 +52,11 @@ class LaunchCounter:
     def __init__(self) -> None:
         self._n = 0
         self._lock = threading.Lock()
+        _counters.add(self)
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -56,6 +65,24 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._n
+
+
+def launch_counts() -> Dict[LaunchCounter, int]:
+    """Every counter's count now."""
+    return {c: c.count for c in list(_counters)}
+
+
+def counts_since(before: Dict[LaunchCounter, int]) -> Dict[LaunchCounter, int]:
+    """Each counter's change since ``before`` (:func:`launch_counts`), where
+    it changed."""
+    delta = {c: c.count - before.get(c, 0) for c in list(_counters)}
+    return {c: n for c, n in delta.items() if n}
+
+
+def add_counts(delta: Dict[LaunchCounter, int], sign: int = 1) -> None:
+    """Add ``delta`` (``sign`` = -1: take it out) to the counters."""
+    for c, n in delta.items():
+        c.add(sign * n)
 
 
 def nvcc() -> str:

@@ -70,6 +70,15 @@ def _positions(q_offset: Pos, n: int, device: torch.device) -> torch.Tensor:
     return q_offset + torch.arange(n, dtype=torch.int32, device=device)
 
 
+def row_positions(pos: Pos, rows: int, device: torch.device) -> torch.Tensor:
+    """A cache fill count as [rows] int32 on ``device``: an int by a fill
+    on the device (no host-to-device copy), a 0-dim or [rows] tensor
+    broadcast on the device (no host read)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device, torch.int32).reshape(-1).expand(rows)
+    return torch.full((rows,), pos, dtype=torch.int32, device=device)
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: Pos = 0,
                     kv_len: Optional[Pos] = None,
@@ -207,9 +216,10 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """One attention sublayer.
 
     * prefill self-attn: ``cache=None`` — blockwise/dense over x, or K4.
-    * decode self-attn: ``cache=(k,v)`` [B,S,K,Dh] + ``cache_pos`` (an int,
-      wave batching, or [B], continuous batching) — insert the token's K/V
-      at ``cache_pos`` in place, attend over the cache (K3 or the plain path).
+    * decode self-attn: ``cache=(k,v)`` [B,S,K,Dh] + ``cache_pos`` (an int
+      or a 0-dim tensor, one fill for every row, or [B], per-row fills;
+      taken as [B] on the device) — insert the token's K/V at
+      ``cache_pos`` in place, attend over the cache (K3 or the plain path).
     * cross-attn (``is_cross``): keys/values come from ``memory`` when given,
       else from a cache of the *projected* memory (:func:`project_memory`).
     * ``k_valid`` [B,Sk]: per-sequence key mask — False marks left-pad slots.
@@ -236,6 +246,7 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             k = apply_rope(k, positions, cfg.rope_theta)
         if cache is not None:
             ck, cv = cache
+            cache_pos = row_positions(cache_pos, B, x.device)
             _cache_insert(ck, k, cache_pos)
             _cache_insert(cv, v, cache_pos)
             new_cache = (ck, cv)
@@ -244,9 +255,7 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 from ..kernels.flash_decode.ops import gqa_flash_decode
                 o = gqa_flash_decode(q, ck, cv, kvl)
             else:
-                if isinstance(kvl, torch.Tensor) and kvl.dim() == 1:
-                    kvl = kvl[:, None]                # per-slot fill -> [B,1]
-                o = decode_attention(q, ck, cv, kv_len=kvl, window=window,
+                o = decode_attention(q, ck, cv, kv_len=kvl[:, None], window=window,
                                      k_valid=k_valid)
         elif cfg.use_kernels and not is_cross and causal and k_valid is None:
             from ..kernels.flash_attention.ops import gqa_flash_attention
@@ -272,21 +281,14 @@ def project_memory(p: Params, memory: torch.Tensor, cfg: ModelConfig
             _project(p, memory, "wv", "bv", cfg.n_kv, cfg.head_dim))
 
 
-def _cache_insert(cache: torch.Tensor, kv_new: torch.Tensor, pos: Pos) -> None:
-    """Write kv_new [B,1,K,Dh] into cache [B,S,K,Dh] at ``pos``, in place.
-
-    ``pos`` an int: every row writes at the same slot (wave batching).
-    ``pos`` [B]: each row writes at its own fill level (continuous batching).
-    Like ``dynamic_update_slice``, a start past the end is clamped to S-1.
+def _cache_insert(cache: torch.Tensor, kv_new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write kv_new [B,1,K,Dh] into cache [B,S,K,Dh] in place, each row at
+    its own fill level ``pos`` [B] on the device.  Like
+    ``dynamic_update_slice``, a start past the end is clamped to S-1.
     """
     S = cache.shape[1]
-    kv_new = kv_new.to(cache.dtype)
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, pos.to(cache.device).long().clamp(0, S - 1)] = kv_new[:, 0]
-    else:
-        at = min(max(int(pos), 0), S - 1)
-        cache[:, at:at + 1] = kv_new
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, pos.long().clamp(0, S - 1)] = kv_new[:, 0].to(cache.dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -19,7 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import Pos, _project, attn_apply, attn_init, init_kv_cache
+from .attention import (Pos, _project, attn_apply, attn_init, init_kv_cache,
+                        row_positions)
 from .config import ModelConfig
 from .layers import (Params, apply_rope, dtype_of, embed_apply, embed_init,
                      mlp_apply, mlp_init, rms_norm, unembed_apply)
@@ -142,15 +143,15 @@ def hybrid_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def hybrid_decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                        cache, pos: Pos):
-    """One token step.  ``pos`` is an int (wave batching) or [B] (continuous
-    batching — each slot's shared-attention KV cache is filled to its own
-    level).  The cache is updated in place and returned."""
+    """One token step.  ``pos`` is an int (one fill for every row) or a
+    device tensor, 0-dim or [B] (each slot's shared-attention KV cache
+    filled to its own level), broadcast to [B] on the device as
+    ``transformer.decode_step`` does; the three forms give the same bits.
+    The cache is updated in place and returned."""
     G, k = _shape(cfg)
     x = _embed(params, cfg, token)
-    if isinstance(pos, torch.Tensor):
-        pos = int(pos) if pos.dim() == 0 else pos.to(x.device, torch.int32)
-    positions = (pos[:, None] if isinstance(pos, torch.Tensor)
-                 else torch.full((1,), pos, dtype=torch.int32, device=x.device))
+    pos = row_positions(pos, x.shape[0], x.device)         # [B]
+    positions = pos[:, None]
     for g in range(G):
         for i in range(k):
             h, (conv_n, ssm_n) = mamba2_apply(

@@ -7,6 +7,7 @@ parameters across with :func:`repro_torch.interop.params_from_numpy`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -132,9 +133,16 @@ def embed_apply(p: Params, tokens: torch.Tensor, scale: bool = True) -> torch.Te
     dtype first (55.5 in bf16 for d = 3072), as the reference does."""
     x = p["table"][tokens.long()]
     if scale:
-        # the factor rounded on the host: no host-to-device copy
-        x = x * float(torch.tensor(np.sqrt(x.shape[-1]), dtype=x.dtype))
+        x = x * _embed_scale(x.shape[-1], x.dtype)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d: int, dtype: torch.dtype) -> float:
+    """sqrt(d) rounded to ``dtype`` on the host: no host-to-device copy, and
+    once per (d, dtype), so a decode step after the prefill reads no
+    tensor's value."""
+    return float(torch.tensor(np.sqrt(d), dtype=dtype))
 
 
 def unembed_apply(p: Params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:

@@ -95,8 +95,10 @@ class Model(nn.Module):
 
     def decode_step(self, params: Any, token: torch.Tensor, cache, pos, *,
                     pad_width: Optional[torch.Tensor] = None, pad_offset: int = 0):
-        """``pos`` an int (wave batching) or [B] (continuous batching); the
-        cache is updated in place and returned.  ``pad_width`` and
+        """``pos`` an int, or a device tensor, 0-dim or [B] (per-row fills),
+        which the step never reads on the host, so that it can be captured
+        as a CUDA graph (the three forms give the same bits); the cache is
+        updated in place and returned.  ``pad_width`` and
         ``pad_offset`` continue a pad-masked prefill (attention families
         only; the ssm and hybrid families ignore them, as the reference's
         do)."""

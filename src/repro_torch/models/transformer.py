@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .attention import (Pos, _project, attn_apply, attn_init, init_kv_cache,
-                        project_memory)
+                        project_memory, row_positions)
 from .config import ModelConfig
 from .layers import (Params, apply_rope, dtype_of, embed_apply, embed_init,
                      mlp_apply, mlp_init, normal_init, rms_norm, unembed_apply)
@@ -257,8 +257,11 @@ def prefill(params: Params, cfg: ModelConfig, *, tokens=None, embeds=None,
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor, cache,
                 pos: Pos, *, pad_width: Optional[torch.Tensor] = None,
                 pad_offset: int = 0):
-    """One token step. token [B,1] int32; ``pos`` is the cache fill count —
-    an int (wave batching) or [B] (continuous batching, per-slot fills).
+    """One token step. token [B,1] int32; ``pos`` is the cache fill count:
+    an int (one fill for every row), or a device tensor, 0-dim or [B]
+    (per-row fills), which is broadcast to [B] and never read on the host,
+    so the step can be captured in a CUDA graph.  The three forms give the
+    same bits.
 
     ``pad_width`` [B] + ``pad_offset`` describe left-pad runs written into
     the cache at prefill ([pad_offset, pad_offset + pad_width[b])): those key
@@ -268,21 +271,16 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor, cache,
     x = embed_apply(params["embed"], token).to(dtype_of(cfg.compute_dtype))
     dev = x.device
     (cache_k, cache_v), cross = cache
-    if isinstance(pos, torch.Tensor):
-        pos = int(pos) if pos.dim() == 0 else pos.to(dev, torch.int32)
+    pos = row_positions(pos, x.shape[0], dev)               # [B]
     k_valid = None
-    if pad_width is None:
-        logical = pos
-    else:
+    logical = pos
+    if pad_width is not None:
         pw = torch.as_tensor(pad_width, dtype=torch.int32, device=dev)   # [B]
         logical = pos - pw                                  # [B]
         base = torch.arange(cache_k.shape[2], dtype=torch.int32, device=dev)
         k_valid = ~((base[None, :] >= pad_offset)
                     & (base[None, :] < pad_offset + pw[:, None]))
-    if isinstance(logical, torch.Tensor):
-        positions = logical[:, None]                        # [B,1]
-    else:
-        positions = torch.full((1,), logical, dtype=torch.int32, device=dev)
+    positions = logical[:, None]                            # [B,1]
     for i, window in enumerate(window_schedule(cfg)):
         layer_cache = ((cache_k[i], cache_v[i]),
                        None if cross is None else (cross[0][i], cross[1][i]))

@@ -30,6 +30,19 @@ resident caches) is not ported yet (ROADMAP item 14b): it needs
 ``alloc_resident`` / ``propagate_resident`` (item 9) and ``SloPlacement``
 (item 10).
 
+On the card every decode step runs as a captured CUDA graph, the port's
+counterpart of the reference's ``jax.jit(model.decode_step)``: one graph per
+decode signature (mode, batch rows, pad-masked or not), captured right after
+that signature's first step, which runs eagerly as the warm-up and counts;
+every later step copies its token, positions and pad widths into the graph's
+static buffers and replays it (``serve/graph.py``).  The graph covers
+``Model.decode_step`` up to the logits; sampling stays outside it, as in the
+reference.  The continuous mode's slot cache is static already; wave mode
+keeps one static cache per wave size, into which each wave's prefill cache
+is copied.  Prefill runs eagerly.  A CPU engine decodes eagerly, and so does
+a card engine made with ``eager=True``; a capture that fails raises, and
+nothing falls back to the eager route by itself.
+
 With ``use_kernels`` on the card, an unpadded prefill (wave mode with equal
 prompt lengths) runs the flash-attention kernel on every layer and every
 decode in which no live slot carries pads runs the flash-decode kernel.
@@ -41,6 +54,7 @@ attention in each shared block, and every decode flash decode.
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -52,6 +66,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..models.layers import dtype_of
 from ..models.model import Model
+from .graph import CapturedStep
 
 
 @dataclass(frozen=True)
@@ -116,14 +131,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _decode_logits(model: Model, params: Any, token: torch.Tensor, cache: Any,
+                   pos: torch.Tensor, pad_width: Optional[torch.Tensor],
+                   pad_offset: int) -> torch.Tensor:
+    """One decode step's logits; the cache is written in place.  A module
+    function over explicit arguments: a captured step holds it, and it must
+    not hold the engine (which holds the step)."""
+    return model.decode_step(params, token, cache, pos, pad_width=pad_width,
+                             pad_offset=pad_offset)[0]
+
+
 class ServeEngine:
     def __init__(self, model: Model, params: Any, cfg: ServeConfig, *,
                  frontend_seq: int = 0, runtime: Any = None,
-                 device: DeviceLike = "cuda") -> None:
+                 device: DeviceLike = "cuda", eager: bool = False) -> None:
         """``params`` must sit on ``device`` (the card unless the caller asks
         for the CPU; raises without one).  ``frontend_seq`` > 0 supplies
         zero-stub frontend embeddings (vlm patch embeds / enc-dec encoder
-        frames)."""
+        frames).  On the card the decode steps replay captured CUDA graphs
+        unless ``eager`` asks for the eager route."""
         if cfg.mode not in ("continuous", "wave"):
             raise ValueError(f"unknown serve mode {cfg.mode!r}")
         if runtime is not None:
@@ -144,6 +170,12 @@ class ServeEngine:
         self._prefix = frontend_seq if not mcfg.is_encdec else 0
         self._can_mask = mcfg.family not in ("ssm", "hybrid")
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # captured decode graphs by signature, and wave mode's static
+        # decode inputs by wave size
+        self._captured = self.device.type == "cuda" and not eager
+        self._graphs: Dict[Tuple, CapturedStep] = {}
+        self._decodes = 0
+        self._w_static: Dict[int, Dict[str, Any]] = {}
         # admission queue + counters
         self._pending: deque = deque()
         self._t0: Optional[float] = None
@@ -171,6 +203,26 @@ class ServeEngine:
             return torch.argmax(last, dim=-1).to(torch.int32)[:, None]
         probs = torch.softmax(last / self.cfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen).to(torch.int32)
+
+    def _decode(self, key: Tuple, fn) -> torch.Tensor:
+        """The logits of the decode step ``fn`` (no arguments: it reads the
+        static inputs): eagerly, or by the captured graph of its signature
+        ``key``, captured at the signature's first step (``fn`` is used only
+        then)."""
+        self._decodes += 1
+        if not self._captured:
+            return fn()
+        step = self._graphs.get(key)
+        if step is None:
+            step = self._graphs[key] = CapturedStep(fn, self.device)
+        return step()
+
+    @property
+    def graph_stats(self) -> Dict[str, int]:
+        """Decode steps run so far, graphs captured (each at its signature's
+        first step) and steps that replayed one."""
+        return {"decodes": self._decodes, "graphs": len(self._graphs),
+                "replays": sum(g.replays for g in self._graphs.values())}
 
     def _check_fits(self, r: Request) -> None:
         need = self._prefix + len(r.prompt) + r.max_new_tokens
@@ -248,7 +300,10 @@ class ServeEngine:
         self._c_axes = _leaves(self.model.cache_batch_axes())
         self._c_pos = np.zeros(B, np.int32)
         self._c_pw = np.zeros(B, np.int32)
+        # the decode's static inputs: pending tokens, fills, pad widths
         self._c_tok = torch.zeros(B, 1, dtype=torch.int32, device=self.device)
+        self._c_posd = torch.zeros(B, dtype=torch.int32, device=self.device)
+        self._c_pwd = torch.zeros(B, dtype=torch.int32, device=self.device)
         self._c_active = np.zeros(B, bool)
         self._c_req: List[Optional[Request]] = [None] * B
         self._c_res: List[Optional[Result]] = [None] * B
@@ -364,18 +419,19 @@ class ServeEngine:
         act = self._c_active.copy()
         if act.any():
             t0 = time.perf_counter()
-            posv = torch.from_numpy(self._c_pos).to(self.device)
+            self._c_posd.copy_(torch.from_numpy(self._c_pos))
             # no live slot carries pads (or the family cannot mask): take
             # the unmasked decode (bit-identical where the mask is the
             # identity)
-            pw = (torch.from_numpy(self._c_pw).to(self.device)
-                  if self._can_mask and self._c_pw.any() else None)
-            logits, self._c_cache = self.model.decode_step(
-                self.params, self._c_tok, self._c_cache, posv, pad_width=pw,
-                pad_offset=self._prefix)
+            masked = self._can_mask and bool(self._c_pw.any())
+            if masked:
+                self._c_pwd.copy_(torch.from_numpy(self._c_pw))
+            logits = self._decode(("continuous", self.cfg.batch, masked), functools.partial(
+                _decode_logits, self.model, self.params, self._c_tok, self._c_cache,
+                self._c_posd, self._c_pwd if masked else None, self._prefix))
             nxt = self._sample(logits)
             live = torch.from_numpy(act).to(self.device)[:, None]
-            self._c_tok = torch.where(live, nxt, self._c_tok)
+            self._c_tok.copy_(torch.where(live, nxt, self._c_tok))
             _sync(self.device)
             self._c_pos[act] += 1
             dt = (time.perf_counter() - t0) / int(act.sum())
@@ -416,6 +472,12 @@ class ServeEngine:
 
         t0 = time.perf_counter()
         tok = self._sample(logits)
+        st = self._wave_inputs(len(reqs), cache, pad)
+        del cache
+        key = ("wave", len(reqs), masked)
+        step = functools.partial(_decode_logits, self.model, self.params, st["tok"],
+                                 st["cache"], st["pos"], st["pw"] if masked else None,
+                                 self._prefix)
         done = np.zeros(len(reqs), bool)
         for _ in range(budget):
             tok_host = tok.cpu().numpy()
@@ -427,8 +489,9 @@ class ServeEngine:
                         done[i] = True
             if done.all():
                 break
-            logits, cache = self.model.decode_step(
-                self.params, tok, cache, pos, pad_width=pad, pad_offset=self._prefix)
+            st["tok"].copy_(tok)
+            st["pos"].fill_(pos)
+            logits = self._decode(key, step)
             pos = pos + 1
             tok = self._sample(logits)
         t_decode = time.perf_counter() - t0
@@ -436,6 +499,28 @@ class ServeEngine:
             r.prefill_s = t_prefill / len(reqs)
             r.decode_s = t_decode / len(reqs)
         return results
+
+    def _wave_inputs(self, rows: int, cache: Any,
+                     pad: Optional[torch.Tensor]) -> Dict[str, Any]:
+        """The decode's static inputs for a wave of ``rows``: pending tokens,
+        the fill (one for every row), pad widths and the cache.  The
+        captured route keeps one set per wave size, whose graphs read it,
+        and copies this wave's prefill cache and pad widths into it, so
+        nothing of an earlier wave stays; the eager route takes the wave's
+        own cache."""
+        st = self._w_static.get(rows) if self._captured else None
+        if st is None:
+            zeros = functools.partial(torch.zeros, dtype=torch.int32, device=self.device)
+            st = {"cache": cache, "tok": zeros(rows, 1), "pos": zeros(rows),
+                  "pw": zeros(rows)}
+            if self._captured:
+                self._w_static[rows] = st
+        else:
+            for static, new in zip(_leaves(st["cache"]), _leaves(cache)):
+                static.copy_(new)
+        if pad is not None:
+            st["pw"].copy_(pad)
+        return st
 
     def _serve_waves(self, requests: Sequence[Request]) -> Dict[int, Result]:
         out: Dict[int, Result] = {}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, and the BOTS workloads and the LM server (dense, MoE, SSM and
-hybrid) launching them end to end.
+hybrid; its decode steps captured as CUDA graphs, against the eager route)
+launching them end to end.
 
 Every test here needs a card and is marked ``cuda``; whether a card is
 present is decided inside the fixture, so every worker collects the same
@@ -9,10 +10,15 @@ reference package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.bots import alignment as tba
+from repro_torch.bots import fib as tbf
 from repro_torch.bots import mandelbrot as tbm
 from repro_torch.bots import sparselu as tbl
 from repro_torch.configs import get_smoke_config
@@ -20,6 +26,9 @@ from repro_torch.kernels.block_lu import block_lu as k2
 from repro_torch.kernels.block_lu.ops import bmod_op
 from repro_torch.kernels.block_lu.block_lu import bmod_cuda
 from repro_torch.kernels.block_lu.ref import bmod_ref
+from repro_torch.kernels.busy_loop import busy_loop as kb
+from repro_torch.kernels.busy_loop.ops import fib_subtree
+from repro_torch.kernels.busy_loop.ref import fib_subtree_ref
 from repro_torch.kernels.flash_attention import flash_attention as k4
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -654,3 +663,153 @@ def test_two_group_state_serve_launches_the_kernels(cuda_device, arch):
                 assert (got[2] > 0 and got[2] % G == 0) if G else got[2] == 0
         assert tokens[True] == tokens[False]
         assert all(len(t) == 8 for t in tokens[True].values())
+
+
+# ---------------------------------------------------------------------------
+# the decode step as a captured CUDA graph (serve/graph.py)
+# ---------------------------------------------------------------------------
+SERVED_FRONTEND = {"internvl2-2b": 8, "seamless-m4t-large-v2": 4}
+
+
+def _served_cfg(arch):
+    """fp32 smoke configs of the served families, with head dims the
+    attention kernels take (dense, vlm and enc-dec d = 64 with r = 3, the
+    hybrid's d = 80, the MoE's d = 64)."""
+    cfg = get_smoke_config(arch).replace(param_dtype="float32", compute_dtype="float32",
+                                         use_kernels=True)
+    if cfg.family in ("dense", "vlm", "encdec"):
+        cfg = cfg.replace(n_heads=6, n_kv=2, d_head=64)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(d_head=80)
+    if cfg.family == "moe":
+        cfg = cfg.replace(d_head=64)
+    return cfg
+
+
+def _kernel_counts():
+    mods = (k3, k4, k5, k6)
+    return ({m.__name__: m.launches.count for m in mods},
+            {m.__name__: _paths(m) for m in mods})
+
+
+def _paths(mod):
+    return {p: c.count for p, c in mod.path_launches.items()}
+
+
+def _delta(after, before):
+    return ({k: after[0][k] - before[0][k] for k in after[0]},
+            {k: {p: after[1][k][p] - before[1][k][p] for p in after[1][k]}
+             for k in after[1]})
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "qwen2-72b", "gemma3-4b", "kimi-k2-1t-a32b",
+                                  "moonshot-v1-16b-a3b", "internvl2-2b",
+                                  "seamless-m4t-large-v2", "zamba2-2.7b", "mamba2-130m"])
+@pytest.mark.parametrize("mode,lens", [("wave", (16, 16, 16)),
+                                       ("continuous", (16, 13, 21, 13, 9))])
+def test_captured_decode_serves_the_eager_tokens_and_counts(cuda_device, arch, mode, lens):
+    """Each served family (fp32, its smoke depth; the vlm and enc-dec models
+    with their zero frontend stubs, gemma3 with its sliding windows) in
+    both modes: the captured route's greedy tokens equal the eager route's,
+    every decode after a signature's first replays a graph, and the launch
+    counts per kernel and per path equal the eager serve's."""
+    cfg = _served_cfg(arch)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(1, cfg.vocab, L).tolist(), max_new_tokens=8)
+            for i, L in enumerate(lens)]
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens, counts = {}, {}
+    for eager in (True, False):
+        eng = ServeEngine(Model(cfg), params, ServeConfig(batch=3, max_len=48, mode=mode),
+                          frontend_seq=SERVED_FRONTEND.get(arch, 0), eager=eager)
+        before = _kernel_counts()
+        tokens[eager] = {rid: r.tokens for rid, r in eng.serve(reqs).items()}
+        torch.cuda.synchronize()
+        counts[eager] = _delta(_kernel_counts(), before)
+        stats = eng.graph_stats
+        if eager:
+            assert stats["decodes"] >= 7 and stats["graphs"] == stats["replays"] == 0
+        else:
+            assert stats["graphs"] >= 1 and stats["replays"] > 0
+            assert stats["decodes"] == stats["graphs"] + stats["replays"]
+    assert tokens[True] == tokens[False]
+    assert all(len(t) == 8 for t in tokens[False].values())
+    assert counts[True] == counts[False]
+
+
+def test_captured_wave_decode_keeps_no_state_of_an_earlier_wave(cuda_device):
+    """Waves of one size share a graph and its static cache: a ragged wave
+    after an equal-length one, and the first wave again, serve the eager
+    route's tokens."""
+    cfg = _served_cfg("minitron-4b")
+    rng = np.random.default_rng(2)
+    waves = [[Request(i, rng.integers(1, cfg.vocab, L).tolist(), max_new_tokens=6)
+              for i, L in enumerate(lens)] for lens in ((12, 12), (20, 7), (12, 12))]
+    waves[2] = waves[0]
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(1))
+    got = {}
+    for eager in (True, False):
+        eng = ServeEngine(Model(cfg), params, ServeConfig(batch=2, max_len=32, mode="wave"),
+                          eager=eager)
+        got[eager] = [{rid: r.tokens for rid, r in eng.serve(w).items()} for w in waves]
+    assert got[True] == got[False]
+    assert got[False][0] == got[False][2]
+
+
+def test_captured_engine_is_freed_with_its_last_reference(cuda_device):
+    """A served engine's graphs hold no reference back to it: dropping the
+    engine frees it (and with it its static caches and graphs) at once, not
+    at the next garbage collection."""
+    cfg = _served_cfg("minitron-4b")
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    reqs = [Request(i, [5, 6, 7, 8], max_new_tokens=4) for i in range(2)]
+    for mode in ("wave", "continuous"):
+        gc.disable()                    # only reference counts may free it
+        try:
+            eng = ServeEngine(Model(cfg), params,
+                              ServeConfig(batch=2, max_len=16, mode=mode))
+            eng.serve(reqs)
+            assert eng.graph_stats["replays"] > 0
+            ref = weakref.ref(eng)
+            del eng
+            assert ref() is None
+        finally:
+            gc.enable()
+
+
+def test_failed_capture_raises(cuda_device):
+    """A decode step that reads a value on the host cannot be captured: the
+    engine raises and does not fall back to the eager route."""
+    cfg = _served_cfg("minitron-4b")
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    model = Model(cfg)
+    real = model.decode_step
+
+    def reads_back(params, token, cache, pos, **kw):
+        int(pos.max())                          # a host read
+        return real(params, token, cache, pos, **kw)
+
+    model.decode_step = reads_back
+    reqs = [Request(i, [5, 6, 7, 8], max_new_tokens=4) for i in range(2)]
+    eng = ServeEngine(model, params, ServeConfig(batch=2, max_len=16, mode="wave"))
+    with pytest.raises(RuntimeError):
+        eng.serve(reqs)
+    torch.cuda.synchronize()
+    out = ServeEngine(model, params, ServeConfig(batch=2, max_len=16, mode="wave"),
+                      eager=True).serve(reqs)
+    assert all(len(r.tokens) == 4 for r in out.values())
+
+
+def test_fib_leaf_cuda_matches_plain(cuda_device):
+    """The busy-loop kernel against its plain version: fib(n) and every
+    lane's accumulator bit for bit, and the BOTS fib and alignment
+    workloads' offloaded runs equal their serial runs."""
+    for n in (0, 1, 2, 8, 12):
+        before = kb.launches.count
+        out, acc = fib_subtree(torch.tensor(n, dtype=torch.int32, device=cuda_device))
+        torch.cuda.synchronize()
+        assert kb.launches.count == before + 1
+        ref_out, ref_acc = fib_subtree_ref(torch.tensor(n, dtype=torch.int32))
+        assert torch.equal(out.cpu(), ref_out) and torch.equal(acc.cpu(), ref_acc)
+    assert tbf.verify("small", n_devices=4)
+    assert tba.verify("small", n_devices=4)
