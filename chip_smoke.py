@@ -34,7 +34,20 @@ runs, printing one JSON line per phase:
 5. BOTS sparselu: the ``nowait``/``resident`` wavefront on 4 virtual devices
    for K=16, B=128 (a 2048² fp32 matrix, 1,496 tasks, 1,240 bmod launches)
    and for K=5, B=96, against the serial kernel, with the residual
-   ‖L·U − A‖/‖A‖ in float64; then BOTS fib(21) (``recursive_offload``, one
+   ‖L·U − A‖/‖A‖ in float64; then the fabric: K=16 once more with
+   ``comm_mode="direct"`` and ``wavefront_offload(peer=True)`` (every edge
+   a SEND/RECV between two virtual devices' streams), flat and on a 2 x 2
+   two-tier topology, each equal to the serial kernel bit for bit, with the
+   host-mediated run's ``bytes_from``, fewer ``bytes_to`` and its edges on
+   the peer links; data-parallel gradients (``mse_grads`` at d_model 4096,
+   a 64 MiB weight, batch 64 per device, D=4) host-mediated, direct (a
+   peer ring all-reduce, within rtol 1e-5 of host-mediated) and direct +
+   block-int8 (the wire kernel ``csrc/q8_wire.cu`` on every device, within
+   max|g|/64), 8 steps of ``data_parallel_step`` synced every 4 with bit-identical
+   parameters in both fabrics, and the 2 x 2 hierarchical mean equal to the
+   serial left-associated mean bit for bit; the wire kernel against its
+   plain version on device 0's gradient and at ragged lengths, bit for bit,
+   and its time; then BOTS fib(21) (``recursive_offload``, one
    busy-loop kernel launch per leaf) and alignment (128 queries x 32
    references, the bank resident, query strips) on 8 virtual devices, each
    equal to its serial run bit for bit, after the busy-loop kernel against
@@ -126,6 +139,13 @@ PEAKS = {
 MANDEL_SIZE, MANDEL_ITER, MANDEL_DEVICES = 4600, 300, 8
 LU_K, LU_B, LU_DEVICES = 16, 128, 4
 LU_LARGE = (5, 96)                      # the reference's "large" size
+# the fabric: racks, devices per rack, spine bandwidth / rack bandwidth
+FABRIC_TOPO = (2, 2, 0.1)
+# data-parallel gradients at an LM projection's size (benchmarks/comm_modes.py's
+# mse_grads at d_model 4096: a 64 MiB fp32 weight), batch 64 per device
+DP_D_MODEL, DP_BATCH, DP_DEVICES, DP_STEPS, DP_SYNC = 4096, 64, 4, 8, 4
+HIER_ELEMS = 1 << 22                    # per-device vector of the 2 x 2 mean
+Q8_RAGGED = (1, 255, 256, 257, 1000003) # wire kernel lengths off the 256-value block
 BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (64, 64, 64), (200, 72, 136))   # (M, N, K)
 # the serve phase's attention shapes (minitron-4b: 8 kv heads, r = 3, d = 128)
 ATTN_MAIN = (4, 8, 3, 512, 128)         # K4: (B, K, r, Sq = Skv, d)
@@ -1100,24 +1120,33 @@ def phase_mandelbrot(torch):
     return launches
 
 
-def _sparselu_once(torch, K: int, B: int, n_devices: int):
+def _sparselu_once(torch, K: int, B: int, n_devices: int, fabric: str = "host-mediated"):
+    """One sparselu wavefront on the card against the serial kernel.
+    ``fabric``: "host-mediated" (every edge through the host), "direct"
+    (``comm_mode="direct"``, every edge device to device) or "direct-2x2"
+    (the same under ``Topology.two_tier(2, 2, inter_bw_ratio=0.1)``)."""
     from repro_torch.bots import sparselu as bl
-    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.core import ClusterRuntime, RuntimeConfig, Topology
     from repro_torch.kernels.block_lu import block_lu as k2
     mat = bl._matrix(K, B)
-    rt = ClusterRuntime(RuntimeConfig(n_virtual=n_devices),
+    cfg = {"host-mediated": {}, "direct": {"comm_mode": "direct"},
+           "direct-2x2": {"comm_mode": "direct",
+                          "topology": Topology.two_tier(*FABRIC_TOPO[:2],
+                                                        inter_bw_ratio=FABRIC_TOPO[2])}}[fabric]
+    peer = fabric != "host-mediated"
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=n_devices, **cfg),
                         table=bl._make_table(K), device="cuda")
     try:
         n_tasks = len(bl._build_dag(mat, K, B))
         _reset_counts(k2)
         t0 = time.perf_counter()
-        res = bl.wavefront(rt, mat)
+        res = bl.wavefront(rt, mat, peer=peer)
         wall = time.perf_counter() - t0
         launches = k2.launches.count
         paths = _path_counts(k2)
         s = rt.cost.summary()
         ser = bl.serial(rt, mat)
-        busy = device_busy(torch, lambda: bl.wavefront(rt, mat))
+        busy = device_busy(torch, lambda: bl.wavefront(rt, mat, peer=peer))
     finally:
         rt.shutdown()
     lu = bl.assemble(res, K)
@@ -1130,22 +1159,179 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int):
     U = torch.triu(full)
     residual = float(torch.linalg.norm(L @ U - A) / torch.linalg.norm(A))
     expect = sum(m * m for m in range(K))
-    row = {"phase": "bots_sparselu", "K": K, "B": B, "devices": n_devices,
-           "tasks": n_tasks, "wall_s": wall, "bmod_launches": launches,
-           "bmod_path_launches": paths, "bmod_expected": expect, "max_abs_diff_vs_serial": diff,
+    row = {"phase": "bots_sparselu", "fabric": fabric, "K": K, "B": B,
+           "devices": n_devices, "tasks": n_tasks, "wall_s": wall,
+           "bmod_launches": launches, "bmod_path_launches": paths,
+           "bmod_expected": expect, "max_abs_diff_vs_serial": diff,
            "residual": residual, "finite": bool(torch.isfinite(lu).all()),
            "modeled_makespan_s": s["makespan_s"], "compute_s": s["compute_s"],
            "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
+           "bytes_peer": s["bytes_peer"], "bytes_peer_cross_rack": s["bytes_peer_cross_rack"],
            "profiled": busy}
     emit(row)
     if launches != expect:
         fail(f"bmod launched {launches} times in the wavefront, expected {expect}")
     if paths["cp_async"] != launches:
-        fail(f"sparselu K={K} B={B}: bmod launched {paths} by path; expected every "
-             f"launch on cp_async")
+        fail(f"sparselu K={K} B={B} ({fabric}): bmod launched {paths} by path; expected "
+             f"every launch on cp_async")
     if not row["finite"] or diff != 0.0 or residual > 1e-5:
-        fail(f"sparselu K={K} B={B}: diff {diff}, residual {residual}")
-    return launches, paths
+        fail(f"sparselu K={K} B={B} ({fabric}): diff {diff}, residual {residual}")
+    return row
+
+
+def phase_sparselu_fabric(torch, host_row: dict) -> list:
+    """The K=16 sparselu wavefront through the peer fabric, flat and on a
+    2 x 2 topology, beside the host-mediated run (``host_row``): each equals
+    the serial factorization bit for bit (checked per run), fetches the same
+    bytes, sends fewer to the devices, and moves its edges peer to peer."""
+    rows = [_sparselu_once(torch, LU_K, LU_B, LU_DEVICES, fabric)
+            for fabric in ("direct", "direct-2x2")]
+    for r in rows:
+        if r["bytes_from"] != host_row["bytes_from"]:
+            fail(f"sparselu {r['fabric']}: bytes_from {r['bytes_from']} != host-mediated "
+                 f"{host_row['bytes_from']}")
+        if not (r["bytes_to"] < host_row["bytes_to"] and r["bytes_peer"] > 0):
+            fail(f"sparselu {r['fabric']}: bytes_to {r['bytes_to']} (host-mediated "
+                 f"{host_row['bytes_to']}), bytes_peer {r['bytes_peer']}")
+    if not rows[1]["bytes_peer_cross_rack"] > 0:
+        fail(f"sparselu direct-2x2 put no bytes on the spine: {rows[1]}")
+    return rows
+
+
+def phase_dp_fabric(torch, peaks):
+    """Data-parallel gradients at an LM projection's size (``mse_grads``,
+    d_model 4096: a 64 MiB fp32 weight; batch 64 per device; D = 4) in the
+    three fabrics, ``data_parallel_step`` with host-mediated and direct
+    syncs, ``hier_allreduce_mean`` on 2 x 2 racks against the serial sum,
+    and the block-int8 wire kernel against its plain version on device 0's
+    gradient.  The wire kernel's launch count is set to 0 just before the
+    ``direct + compress`` run and read just after."""
+    from repro_torch import comm_modes as cm
+    from repro_torch.core import ClusterRuntime, PeerTransport, RuntimeConfig, Topology
+    from repro_torch.core.compression import true_div
+    from repro_torch.kernels.q8_wire import q8_wire as kq
+    from repro_torch.kernels.q8_wire.q8_wire import q8_roundtrip_cuda
+    from repro_torch.kernels.q8_wire.ref import q8_roundtrip_ref
+
+    d, nb, D = DP_D_MODEL, DP_BATCH, DP_DEVICES
+    params = cm.make_params(d)
+    batches = cm.make_batches(d, nb, D)
+    runs, grads = {}, {}
+    for mode, compress in (("host-mediated", False), ("direct", False),
+                           ("direct+int8", True)):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=D, comm_mode=mode.split("+")[0],
+                                          compress=compress),
+                            table=cm.make_table(), device="cuda")
+        try:
+            kq.launches.reset()
+            t0 = time.perf_counter()
+            g = rt.data_parallel_grads("mse_grads", params, batches)
+            wall = time.perf_counter() - t0
+            q8 = kq.launches.count
+            s = rt.cost.summary()
+        finally:
+            rt.shutdown()
+        grads[mode] = g
+        runs[mode] = {"wall_s": wall, "q8_wire_launches": q8,
+                      **{k: s[k] for k in ("bytes_to", "bytes_from", "bytes_peer",
+                                           "comm_s", "peer_s")}}
+    ref = grads["host-mediated"]
+    scale = max(float(ref[k].abs().max()) for k in ("w", "b"))
+    direct_err = max(float((grads["direct"][k] - ref[k]).abs().max()) for k in ("w", "b"))
+    int8_err = max(float((grads["direct+int8"][k] - ref[k]).abs().max()) for k in ("w", "b"))
+    direct_ok = all(torch.allclose(grads["direct"][k], ref[k], rtol=1e-5, atol=1e-6)
+                    for k in ("w", "b"))
+    q8_launches = runs["direct+int8"]["q8_wire_launches"]
+
+    steps = {}
+    for mode in ("host-mediated", "direct"):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=D, comm_mode=mode),
+                            table=cm.make_table(), device="cuda")
+        try:
+            t0 = time.perf_counter()
+            p = None
+            for _ in range(DP_STEPS):
+                p = rt.data_parallel_step("mse_grads", params, batches,
+                                          sync_every=DP_SYNC)
+            wall = time.perf_counter() - t0
+            s = rt.cost.summary()
+        finally:
+            rt.shutdown()
+        steps[mode] = (p, {"wall_s": wall, **{k: s[k] for k in ("bytes_to", "bytes_from",
+                                                                "bytes_peer")}})
+    step_equal = all(torch.equal(steps["host-mediated"][0][k], steps["direct"][0][k])
+                     for k in ("w", "b"))
+    step_finite = all(bool(torch.isfinite(steps["direct"][0][k]).all()) for k in ("w", "b"))
+
+    topo = Topology.two_tier(*FABRIC_TOPO[:2], inter_bw_ratio=FABRIC_TOPO[2])
+    pool, handles, specs, values = cm.collective_pool(topo, HIER_ELEMS, seed=0,
+                                                      device="cuda")
+    try:
+        PeerTransport(topology=topo).hier_allreduce_mean(pool, handles, specs)
+        pool.sync()
+        means = [pool.transfer_from(i, handles[i][0]) for i in range(topo.n_devices)]
+        s = pool.cost.summary()
+    finally:
+        pool.stop_all()
+    serial = values[0][0]
+    for v in values[1:]:
+        serial = serial + v[0]
+    serial = true_div(serial, topo.n_devices)
+    hier_equal = all(torch.equal(m, serial) for m in means)
+
+    # the wire kernel on device 0's gradient (the leaf the direct+int8 run
+    # quantized), against its plain version on the card and on the CPU
+    dev = torch.device("cuda", 0)
+    g0 = cm.mse_grads({k: v.to(dev) for k, v in params.items()},
+                      {k: v.to(dev) for k, v in batches[0].items()})["grads"]["w"]
+    out = q8_roundtrip_cuda(g0)
+    torch.cuda.synchronize()
+    plain = q8_roundtrip_ref(g0)
+    cpu = q8_roundtrip_ref(g0.cpu())
+    bitwise = (torch.equal(out.view(torch.int32), plain.view(torch.int32))
+               and torch.equal(out.cpu().view(torch.int32), cpu.view(torch.int32)))
+    ragged = {}
+    flat = g0.reshape(-1)
+    for n in Q8_RAGGED:
+        x = flat[:n] * 3.0
+        ragged[n] = bool(torch.equal(q8_roundtrip_cuda(x).view(torch.int32),
+                                     q8_roundtrip_ref(x).view(torch.int32)))
+    n = g0.numel()
+    # ~9 separately rounded operations a value (abs, max, divide, round,
+    # clamp twice, two conversions, multiply); 4 bytes read and 4 written
+    q8_bound, q8_by = bound_ms(peaks, 8 * n, 9 * n, "fp32_unfused")
+    kq8 = {"name": "q8_wire", "n": n, "block": 256, "bitwise": bool(bitwise),
+           "ragged_bitwise": ragged,
+           "max_abs_err": float((out - plain).abs().max()),
+           "ms": time_ms(torch, lambda: q8_roundtrip_cuda(g0), 50),
+           "plain_ms": time_ms(torch, lambda: q8_roundtrip_ref(g0), 10),
+           "library_ms": None, "bound_ms": q8_bound, "bound_by": q8_by,
+           "pass": bool(bitwise) and all(ragged.values())}
+    emit({"phase": "kernel_check", **kq8})
+    row = {"phase": "dp_fabric", "d_model": d, "batch": nb, "devices": D,
+           "grads": runs, "direct_max_abs_err": direct_err, "direct_allclose": direct_ok,
+           "int8_max_abs_err": int8_err, "int8_bound": scale / 64,
+           "step": {m: r for m, (_, r) in steps.items()}, "steps": DP_STEPS,
+           "sync_every": DP_SYNC, "step_params_bitwise": step_equal,
+           "hier_mean": {"elems": HIER_ELEMS, "racks": [list(r) for r in topo.racks],
+                         "bitwise_serial": hier_equal, "bytes_peer": s["bytes_peer"],
+                         "bytes_peer_cross_rack": s["bytes_peer_cross_rack"]}}
+    emit(row)
+    if not kq8["pass"]:
+        fail(f"q8_wire kernel disagrees with its plain version: {kq8}")
+    if not direct_ok:
+        fail(f"direct DP gradients differ from host-mediated: {direct_err}")
+    if not int8_err <= scale / 64:
+        fail(f"int8 DP gradients off by {int8_err}, bound {scale / 64}")
+    if q8_launches < 1:
+        fail("the direct + compress run never launched the q8_wire kernel")
+    if runs["direct"]["bytes_from"] >= runs["host-mediated"]["bytes_from"]:
+        fail(f"direct DP fetched no fewer bytes than host-mediated: {runs}")
+    if not (step_equal and step_finite):
+        fail("data_parallel_step: direct parameters differ from host-mediated")
+    if not hier_equal:
+        fail("hier_allreduce_mean differs from the serial left-associated mean")
+    return kq8, q8_launches
 
 
 def phase_fib_alignment(torch, peaks):
@@ -1838,8 +2024,13 @@ def main() -> int:
     k5 = phase_ssd_kernel(torch, peaks)
     phase_listings(torch)
     k1_launches = phase_mandelbrot(torch)
-    k2_launches, k2_paths = _sparselu_once(torch, LU_K, LU_B, LU_DEVICES)
+    lu_rows = [_sparselu_once(torch, LU_K, LU_B, LU_DEVICES)]
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
+    lu_rows += phase_sparselu_fabric(torch, lu_rows[0])
+    k2_launches = sum(r["bmod_launches"] for r in lu_rows)
+    k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
+                for p in lu_rows[0]["bmod_path_launches"]}
+    kq8, kq8_launches = phase_dp_fabric(torch, peaks)
     kbusy, kbusy_launches = phase_fib_alignment(torch, peaks)
     serve_runs = [*phase_serve(torch).values(), *phase_serve_moe(torch).values()]
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
@@ -1881,6 +2072,9 @@ def main() -> int:
         # a port-only kernel: the reference's busy loop is XLA's fori_loop
         {**kbusy, "route": "cuda", "source": "src/repro_torch/csrc/busy_loop.cu",
          "replaces": "benchmarks/bots_fib.py:44", "launches": kbusy_launches},
+        # a port-only kernel: the reference's wire round trip is an XLA fusion
+        {**kq8, "route": "cuda", "source": "src/repro_torch/csrc/q8_wire.cu",
+         "replaces": "src/repro/core/compression.py:34", "launches": kq8_launches},
     ]
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@
 Twin of ``benchmarks/bots_sparselu.py``: block LU over a K×K grid of B×B
 blocks with the BOTS task kernels (lu0/fwd/bdiv/bmod).  Every inter-task
 dependency crosses the host, so each factorization step re-sends block
-operands and fetches block results.  On the card the ``bmod`` tasks — the
+operands and fetches block results — unless ``wavefront(peer=True)`` routes
+them device to device over the runtime's peer fabric.  On the card the
+``bmod`` tasks — the
 O(n³) trailing updates — launch the hand-written CUDA kernel; the solves are
 plain PyTorch.
 """
@@ -16,7 +18,7 @@ import torch
 
 from .._device import DeviceLike
 from ..core import (ClusterRuntime, DagTask, KernelTable, MapSpec,
-                    RuntimeConfig, TensorSpec, wavefront_offload)
+                    RuntimeConfig, TensorSpec)
 from ..kernels.block_lu.ops import bdiv_op, bmod_op, fwd_op, lu0_op
 
 SIZES = {"small": (4, 64), "large": (5, 96)}
@@ -119,12 +121,17 @@ def _build_dag(mat: torch.Tensor, K: int, B: int):
     return tasks
 
 
-def wavefront(rt: ClusterRuntime, mat: torch.Tensor) -> Dict[str, torch.Tensor]:
+def wavefront(rt: ClusterRuntime, mat: torch.Tensor, *,
+              peer: bool = False) -> Dict[str, torch.Tensor]:
     """The offloaded program: the task DAG as nowait waves, with each wave's
-    shared operands pinned once per device (``resident=True``)."""
+    shared operands pinned once per device (``resident=True``).
+    ``peer=True`` keeps every block on its device and moves each dependency
+    device→device over the runtime's peer fabric instead of through the
+    host (the DAG's edges leave the funnel; each block is fetched once at
+    the end)."""
     K, _, B, _ = mat.shape
-    return wavefront_offload(rt.ex, _build_dag(mat, K, B), nowait=True,
-                             resident=True)
+    return rt.wavefront_offload(_build_dag(mat, K, B), nowait=True,
+                                resident=True, peer=peer)
 
 
 def serial(rt: ClusterRuntime, mat: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ Public API (counterparts of ``repro.core``):
   MapSpec / sec / TargetExecutor   target regions with map(to/from/tofrom/alloc)
   strip_partition / offload_strips / recursive_offload / wavefront_offload
   TaskGraph / TaskNode / run_graph    task-graph IR the patterns lower into
-  ClusterRuntime / RuntimeConfig   deployable runtime (host-mediated), cost model
+  Transport / HostFunnelTransport / PeerTransport   the wire, and collectives
+  Topology                     racks and per-pair links of the peer fabric
+  ClusterRuntime / RuntimeConfig   deployable runtime (host-mediated or
+                               direct), data-parallel fabric, cost model
 """
 from .costmodel import (CostModel, Event, LinkModel, PAPER_ETHERNET,
                         PeerRecord, TimelineSpan)
@@ -22,7 +25,8 @@ from .scheduler import (DagTask, PeerRef, offload_strips, recursive_offload,
 from .target import MapSpec, Section, TargetExecutor, TargetFuture, sec
 from .taskgraph import (PlacementContext, PlacementPolicy, RoundRobin,
                         TaskGraph, TaskNode, resolve_policy, run_graph)
-from .transport import HostFunnelTransport, Transport
+from .topology import Topology
+from .transport import HostFunnelTransport, PeerTransport, Transport
 
 __all__ = [
     "KernelTable", "kernel", "GLOBAL_KERNEL_TABLE",
@@ -36,7 +40,7 @@ __all__ = [
     "TaskGraph", "TaskNode", "run_graph", "resolve_policy",
     "PlacementPolicy", "PlacementContext", "RoundRobin",
     "ClusterRuntime", "RuntimeConfig",
-    "Transport", "HostFunnelTransport",
+    "Transport", "HostFunnelTransport", "PeerTransport", "Topology",
     "CostModel", "LinkModel", "Event", "PeerRecord", "TimelineSpan",
     "PAPER_ETHERNET",
 ]

@@ -11,11 +11,14 @@ reference.  Two makespan models:
   list-scheduled onto a host-TX lane, a host-RX lane and one compute lane
   per device, so transfers for strip *k+1* overlap device *k*'s compute.
 
+Peer (device→device) messages are timed per directed link: on the one
+``peer_link``, or, with a :class:`~.topology.Topology` installed, on each
+pair's own link (intra-rack vs spine), and the spine's share is counted in
+``bytes_peer_cross_rack``.
+
 Left for later slices: the TPU roofline constants (the port measures on the
 card instead), per-kernel time estimates for cost-driven placement (ROADMAP
-item 10), calibration profiles and the roofline report (item 12), and
-topology-aware peer pricing (item 9; without a topology
-``bytes_peer_cross_rack`` is 0, as in the reference).
+item 10), calibration profiles and the roofline report (item 12).
 """
 from __future__ import annotations
 
@@ -105,10 +108,14 @@ class CostModel:
     """
 
     def __init__(self, link: LinkModel = PAPER_ETHERNET,
-                 peer_link: Optional[LinkModel] = None) -> None:
+                 peer_link: Optional[LinkModel] = None,
+                 topology=None) -> None:
         self.link = link
         # the device↔device link (None = same fabric as the host link)
         self.peer_link = peer_link
+        # optional Topology: each directed peer pair is timed on ITS link
+        # and cross-rack traffic is counted apart (bytes_peer_cross_rack)
+        self.topology = topology
         self.transfers: List[TransferRecord] = []
         self.compute: List[ComputeRecord] = []
         self.adjustments: List[TransferRecord] = []
@@ -202,8 +209,21 @@ class CostModel:
         """Bytes moved device→device — real messages, zero host-NIC load."""
         return sum(p.nbytes for p in self.peers)
 
+    def bytes_peer_cross_rack(self) -> int:
+        """Peer bytes whose (src, dst) pair crosses a rack boundary under
+        the installed topology (0 without one: a flat fabric has none)."""
+        if self.topology is None:
+            return 0
+        return sum(p.nbytes for p in self.peers
+                   if self.topology.covers(p.src, p.dst)
+                   and self.topology.cross_rack(p.src, p.dst))
+
     def peer_link_for(self, src: int, dst: int) -> LinkModel:
-        """The link model timing one directed peer message."""
+        """The link model timing one directed peer message: the topology's
+        per-pair link when one is installed, else the uniform ``peer_link``
+        (the host link as the final fallback)."""
+        if self.topology is not None and self.topology.covers(src, dst):
+            return self.topology.link_between(src, dst)
         return self.peer_link or self.link
 
     def comm_time(self) -> float:
@@ -306,7 +326,7 @@ class CostModel:
             "bytes_to": float(self.bytes_moved("to")),
             "bytes_from": float(self.bytes_moved("from")),
             "bytes_peer": float(self.bytes_peer()),
-            "bytes_peer_cross_rack": 0.0,
+            "bytes_peer_cross_rack": float(self.bytes_peer_cross_rack()),
             "comm_s": self.comm_time(),
             "peer_s": self.peer_time(),
             "compute_s": self.compute_time(),

@@ -11,13 +11,19 @@ plus a per-device mutex (paper §4.2), and every transfer is accounted in a
 
 Commands run on one worker thread per device, each issued under that
 device's stream.  A command that hands a value to the host or to another
-device (EXEC, XFER_TO) synchronizes its stream before its future resolves,
-so a reader on any other stream or thread only ever sees finished data, and
-the caching allocator can reuse a freed block without ``record_stream``.
-Finer-grained ordering with CUDA events is later work.
+device (EXEC, XFER_TO, SEND, RECV) synchronizes its stream before its future
+resolves, so a reader on any other stream or thread only ever sees finished
+data, and the caching allocator can reuse a freed block without
+``record_stream``.  Finer-grained ordering with CUDA events is later work.
 
-Left for later slices: peer copies (ROADMAP item 9), elastic membership and
-command deadlines (item 11), declare-target globals.
+Device→device copies (:meth:`DevicePool.peer_copy`) are a SEND on the
+source's stream and a RECV on the destination's: the RECV copies the payload
+into a buffer of its own on its own stream, so no device's slot ever aliases
+another device's, and the bytes are counted as peer traffic, never against
+the host funnel.
+
+Left for later slices: elastic membership and command deadlines (ROADMAP
+item 11), declare-target globals.
 """
 from __future__ import annotations
 
@@ -68,7 +74,8 @@ def as_host_tensor(value: Any) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Command:
-    op: str                 # ALLOC | FREE | XFER_TO | XFER_FROM | EXEC | STOP
+    op: str                 # ALLOC | FREE | XFER_TO | XFER_FROM | EXEC |
+                            # SEND | RECV | STOP
     device: int
     handle: Optional[int] = None
     nbytes: int = 0
@@ -77,6 +84,8 @@ class Command:
     # dependency-aware stream: the buffer handles this command reads/writes
     reads: Tuple[int, ...] = ()
     writes: Tuple[int, ...] = ()
+    # SEND/RECV only: the other endpoint of the device↔device transfer
+    peer: Optional[int] = None
 
 
 class NodeDevice:
@@ -131,6 +140,28 @@ class NodeDevice:
         if cmd.op == "XFER_FROM":
             out = self.store.read(cmd.handle, section=payload.get("section"))
             return out.to("cpu", copy=True)
+        if cmd.op == "SEND":
+            # peer rendezvous, source side: the future carries the slot's
+            # tensor itself to the peer's RECV.  The store replaces slots
+            # and never writes one in place, so a later writer of this
+            # handle installs a new tensor and cannot change what is in
+            # flight.  Synchronize first: the tensor may still be in the
+            # making on this stream (a fresh ALLOC's zeros), and the RECV
+            # reads it on another stream.
+            value = self.store.read(cmd.handle)
+            self.synchronize()
+            return value
+        if cmd.op == "RECV":
+            # peer rendezvous, sink side: the matching SEND has settled (the
+            # stream gates RECV on it), so this never blocks the worker; a
+            # failed SEND re-raises here.  The copy lands in a buffer of
+            # this device's own, made on this device's stream — a device
+            # buffer never aliases another device's — and is finished
+            # before the future resolves.
+            value = payload["source"].result()
+            self.store.write(cmd.handle, self._place(value))
+            self.synchronize()
+            return None
         if cmd.op == "EXEC":
             entry = table.lookup(cmd.kernel_index)
             # buffers: name -> handle, or name -> [handles] for pytree-valued
@@ -613,6 +644,52 @@ class DevicePool:
             store.install(handle, value)
 
         return self._submit_async(device, wb, writes=(handle,))
+
+    def peer_copy(self, src: int, src_handle: int, dst: int, dst_handle: int,
+                  *, nbytes: Optional[int] = None, tag: str = "") -> "_cf.Future":
+        """Device→device copy: a SEND on ``src``'s stream rendezvousing with
+        a RECV on ``dst``'s stream; the transfer never touches the host
+        funnel (it is accounted as peer-link traffic instead).
+
+        Ordering composes with ``nowait`` and resident buffers like
+        XFER/EXEC: SEND *reads* ``src_handle`` (runs after its last
+        producer, holds back its next writer) and RECV *writes*
+        ``dst_handle``.  RECV is gated on the SEND future (``extra_deps``),
+        so the destination worker gets the command only once the payload
+        exists.  That edge always points from an earlier-issued command to
+        a later-issued one, so no cycle can form: any interleaving of peer
+        copies, full rings included, is deadlock-free.
+
+        ``nbytes`` overrides the accounted message size (modeled wire
+        compression); the payload itself always moves intact.  Returns the
+        RECV future (a registered writer of ``dst_handle``); a SEND failure
+        propagates through it.
+        """
+        if src == dst:
+            raise ValueError(f"peer_copy: src and dst are both device {src}")
+        wire = self.mirrors[src].nbytes(src_handle) if nbytes is None else int(nbytes)
+        with self.locks[src]:
+            scmd = Command("SEND", src, handle=src_handle, nbytes=wire,
+                           tag=tag, peer=dst, reads=(src_handle,))
+            self._log(scmd)
+            send_fut = self._submit_async(
+                src,
+                self._traced(src, scmd,
+                             lambda: self.devices[src].execute(scmd, self.table)),
+                reads=scmd.reads)
+        with self.locks[dst]:
+            rcmd = Command("RECV", dst, handle=dst_handle, nbytes=wire,
+                           tag=tag, peer=src, writes=(dst_handle,))
+            self._log(rcmd)
+            payload = {"source": send_fut}
+            recv_fut = self._submit_async(
+                dst,
+                self._traced(dst, rcmd,
+                             lambda: self.devices[dst].execute(rcmd, self.table,
+                                                               payload)),
+                writes=rcmd.writes, extra_deps=(send_fut,))
+        self.cost.record_peer(src, dst, wire, tag=tag)
+        return recv_fut
 
     def exec_kernel(self, device: int, kernel_name: str,
                     buffers: Dict[str, Any],

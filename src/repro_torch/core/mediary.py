@@ -186,6 +186,23 @@ class PresentEntry:
     def nbytes(self) -> int:
         return sum(s.nbytes for s in self.specs)
 
+    def peer_clone(self, handles: List[int], write_futs: List[Any]) -> "PresentEntry":
+        """A copy of this entry fulfilled on *another* device, device→device.
+
+        The clone keeps this entry's logical identity (name, structure, host
+        view and its version counters) but binds the peer's mediary
+        ``handles``, with ``write_futs`` the RECV futures filling them.  A
+        *device-ahead* entry propagates device-ahead: the peer's copy is as
+        far past the host as the source's, and no host reconciliation
+        happens on the way.
+        """
+        return PresentEntry(
+            name=self.name, handles=list(handles), treedef=self.treedef,
+            host_leaves=list(self.host_leaves), specs=list(self.specs),
+            host_versions=list(self.host_versions), refcount=1,
+            version=self.version, debit=0, write_futs=list(write_futs),
+            device_ahead=self.device_ahead)
+
 
 class PresentTable:
     """Reference-counted name → device-buffer map (OpenMP's present table).
@@ -219,6 +236,9 @@ class PresentTable:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def names(self) -> List[str]:
+        return list(self._entries)
 
     def match_value(self, name: str, leaves: Sequence[Any],
                     treedef: Any) -> Optional[PresentEntry]:

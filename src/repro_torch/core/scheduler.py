@@ -10,7 +10,8 @@ Port of ``repro.core.scheduler``: thin builders that lower into the
   recursion until the frontier has one task per device, offloads the
   subtrees, and combines.
 * **Wavefront with host-mediated dependencies** (sparselu §5.6): a task DAG
-  where every inter-device dependency round-trips through the host.
+  where every inter-device dependency round-trips through the host — or,
+  with ``peer=True``, moves device→device over the peer fabric.
 
 Speculative re-dispatch of straggler strips is ROADMAP item 11.
 """
@@ -149,14 +150,17 @@ def wavefront_offload(ex: TargetExecutor, tasks: Sequence[DagTask], *,
                       transport: Optional[Any] = None,
                       policy: Any = None,
                       tag: str = "dag", **graph_kw) -> Dict[str, Any]:
-    """Run a dependency DAG where every edge crosses the host (OpenMP rule).
+    """Run a dependency DAG, by default with every edge crossing the host
+    (the OpenMP rule).
 
     Lowers the :class:`DagTask` list into a :class:`TaskGraph` and runs it
     through :func:`~.taskgraph.run_graph`: tasks whose dependencies are
     satisfied run as concurrent nowait regions, one wave at a time; each
     inter-device value is fetched to the host and re-sent to the consumer
     (paper §5.6).  ``resident=True`` pins the wave's shared plain inputs once
-    per device per wave.
+    per device per wave.  ``peer=True`` keeps each output on its device and
+    moves the edges device→device over ``transport`` (default: a
+    :class:`~.transport.PeerTransport`).
     """
     graph = TaskGraph.from_tasks(tasks)
     return run_graph(ex, graph, policy=policy, out_name=out_name,

@@ -29,14 +29,18 @@ same, unmodified host value skips ALLOC and XFER; a changed value re-sends
 only the changed leaves.  Tensors are mutable, so "unmodified" is identity
 **and** an unchanged ``tensor._version`` (:func:`~.mediary.leaf_unchanged`).
 
+``alloc_resident`` pins an uninitialized, device-ahead buffer (the output
+half of a data environment) and ``propagate_resident`` fulfills a present
+entry on another device straight from a device copy, over the peer fabric.
+
 Left for later slices: capacity spill/refetch (ROADMAP item 10),
-``propagate_resident`` (item 9), self-healing of failed writers (item 11),
-declare-target globals.
+self-healing of failed writers (item 11), declare-target globals.
 """
 from __future__ import annotations
 
 import concurrent.futures as _cf
 import contextlib
+import math
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Mapping, Tuple, Union
@@ -335,10 +339,106 @@ class TargetExecutor:
             self.exit_data(device, name)
         return fetched[0] if treedef is None else _tree.unflatten(treedef, fetched)
 
-    def propagate_resident(self, src: int, dst: int, name: str, **kw) -> None:
-        """Device→device fulfillment of a present entry: the peer fabric."""
-        raise NotImplementedError(
-            "propagate_resident needs the peer fabric: ROADMAP item 9")
+    def alloc_resident(self, device: int, name: str, template: Any, *,
+                       tag: str = "alloc_resident") -> None:
+        """Pin an *uninitialized* buffer: ALLOC only, zero host transfer.
+
+        The entry starts *device-ahead* (the host has no value for it:
+        ``host_leaves`` are None placeholders, so value matches miss until a
+        fetch reconciles); a kernel's ``device_out`` map writes it, a peer
+        collective reduces it, :meth:`fetch_resident` reads it back.
+        ``template`` is a value, a :class:`TensorSpec`, or a pytree of
+        either.
+        """
+        pool = self.pool
+        leaves, treedef = _flatten_map_value(template)
+        if any(isinstance(l, Section) for l in leaves):
+            raise TypeError(f"array section {name!r} cannot be made resident")
+        specs = [_as_spec(l) for l in leaves]
+        with pool.env_locks[device]:
+            if pool.present[device].get(name) is not None:
+                raise KeyError(f"{name!r} is already resident on device {device}")
+            hs = [pool.alloc(device, s.shape, s.dtype, tag=f"{tag}:{name}")
+                  for s in specs]
+            pool.present[device].add(PresentEntry(
+                name=name, handles=hs, treedef=treedef,
+                host_leaves=[None] * len(hs), specs=specs,
+                host_versions=[None] * len(hs),
+                write_futs=[None] * len(hs), device_ahead=True))
+
+    def propagate_resident(self, src: int, dst: int, name: str, *,
+                           transport: Any = None, tag: str = "peer",
+                           compress_wire: bool = False) -> None:
+        """Fulfill a present entry device→device: ``dst`` gains (or
+        refreshes) entry ``name`` from ``src``'s device copy, without host
+        reconciliation.
+
+        The peer-path analogue of ``enter_data``: a *device-ahead* entry
+        propagates still device-ahead — the host never sees the bytes.  If
+        ``dst`` already holds ``name`` (same structure), its handles are
+        overwritten; otherwise fresh handles are allocated and the entry
+        installed with one reference, owned by the caller.  ``transport``
+        defaults to a :class:`~.transport.PeerTransport`; a
+        ``HostFunnelTransport`` routes the same fulfillment through the
+        host NIC.
+
+        ``compress_wire=True`` accounts each leaf's message at its
+        block-int8 wire size (the transport topology's block, 256 without
+        one) — *modeled* wire compression: the payload moves intact, so the
+        destination's value is bit-identical either way.  The graph runner
+        sets it for edges the policy routed ``"peer+int8"``.
+        """
+        if src == dst:
+            return
+        pool = self.pool
+        if transport is None:
+            from .transport import PeerTransport
+            transport = PeerTransport()
+        with pool.env_locks[src]:
+            sent = pool.present[src].get(name)
+            if sent is None:
+                raise KeyError(f"{name!r} is not resident on device {src}")
+            sent.refcount += 1         # hold: a concurrent exit_data must not
+                                       # free the source handles mid-copy
+            src_handles = list(sent.handles)
+            snap = sent.peer_clone(src_handles, [])
+            specs, treedef = list(snap.specs), snap.treedef
+        try:
+            with pool.env_locks[dst]:
+                dent = pool.present[dst].get(name)
+                if dent is not None:
+                    if (not same_treedef(dent.treedef, treedef)
+                            or list(dent.specs) != specs):
+                        raise ValueError(
+                            f"resident buffer {name!r} structure differs "
+                            f"between devices {src} and {dst}; exit_data the "
+                            f"stale one first")
+                    dst_handles = list(dent.handles)
+                else:
+                    dst_handles = [pool.alloc(dst, s.shape, s.dtype,
+                                              tag=f"{tag}:{name}")
+                                   for s in specs]
+                wires: List[Any] = [None] * len(specs)
+                if compress_wire:
+                    from .compression import int8_wire_nbytes
+                    block = getattr(getattr(transport, "topology", None),
+                                    "block", 256)
+                    wires = [int8_wire_nbytes(math.prod(s.shape), block)
+                             for s in specs]
+                futs = [transport.sendrecv(pool, src, sh, dst, dh,
+                                           nbytes=w, tag=f"{tag}:{name}")
+                        for sh, dh, w in zip(src_handles, dst_handles, wires)]
+                if dent is None:
+                    pool.present[dst].add(snap.peer_clone(dst_handles, futs))
+                else:
+                    # refresh in place: the peer write is the new producer
+                    dent.host_leaves = list(snap.host_leaves)
+                    dent.host_versions = list(snap.host_versions)
+                    dent.device_ahead = snap.device_ahead
+                    dent.write_futs = futs
+                    dent.version += 1
+        finally:
+            self.exit_data(src, name)  # release the hold taken above
 
     # -- region lifecycle (paper §4.1/§4.2) ------------------------------------
     def _run(self, kernel: str, device: int, maps: MapSpec,

@@ -8,12 +8,13 @@ Port of ``repro.core.taskgraph`` to the extent the main path needs it:
   values.
 * :func:`run_graph` — the one executor every pattern lowers into: waves of
   ready nodes dispatched as ``nowait`` regions, host-mediated edges (the
-  paper's funnel), and per-wave resident pins (``resident=True``).
+  paper's funnel) or device→device edges (``peer=True``), and per-wave
+  resident pins (``resident=True``).
 * :class:`RoundRobin` placement, the reference's default.
 
 Left for later slices, each raising ``NotImplementedError`` naming its
-ROADMAP item: ``peer=True`` edges (item 9), the locality/HEFT/SLO policies
-(item 10), straggler hedging, checkpoints and failure recovery (item 11).
+ROADMAP item: the locality/HEFT/SLO policies (item 10), straggler hedging,
+checkpoints, failure recovery and lineage replay (item 11).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 from . import _tree
 from .device import DeviceFailure
 from .mediary import TensorSpec
-from .target import MapSpec, Section, TargetExecutor, TargetFuture, _flatten_map_value
+from .target import (MapSpec, Section, TargetExecutor, TargetFuture, _alias_map,
+                     _flatten_map_value)
 
 
 # ---------------------------------------------------------------------------
@@ -32,8 +34,15 @@ from .target import MapSpec, Section, TargetExecutor, TargetFuture, _flatten_map
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class PeerRef:
-    """A dependency value that lives on a device, not on the host (the
-    placeholder ``run_graph(peer=True)`` hands to ``make_maps``)."""
+    """A dependency value that lives on a device, not on the host.
+
+    Under ``run_graph(peer=True)`` the ``deps`` handed to a node's
+    ``make_maps`` hold these placeholders instead of host tensors: a callback
+    that places dependency values in a ``to=`` clause works unchanged, and
+    the runner rewrites each such entry into a ``present`` binding.  The
+    runner resolves a ref through its live producer map, so ``device`` (where
+    the entry lived when the ref was minted) is informational only.
+    """
 
     task: str
     entry: str
@@ -164,8 +173,13 @@ class PlacementPolicy:
 
     def route_edge(self, ctx: PlacementContext, src: int, dst: int,
                    nbytes: int) -> str:
-        """Which wire carries one cross-device edge; defers to the
-        transport's :meth:`~.transport.Transport.edge_route`."""
+        """Which wire carries one cross-device dependency edge: ``"peer"``
+        (a raw peer message), ``"peer+int8"`` (a peer message under the
+        modeled block-int8 wire, where the transport's topology says the
+        byte savings beat the quantize cost) or ``"funnel"`` (fetch and
+        re-send on the host NIC).  The base policy defers to the transport's
+        :meth:`~.transport.Transport.edge_route`; without a topology that is
+        always ``"peer"``."""
         if ctx.transport is not None:
             return ctx.transport.edge_route(ctx.cost, src, dst, nbytes)[1]
         return "peer"
@@ -232,18 +246,26 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
 
     * nodes whose dependencies are satisfied dispatch as concurrent
       ``nowait`` regions (serially with ``nowait=False``), one wave at a
-      time; every edge is host-mediated — the producer's value came back to
-      the host and is re-sent by the consumer's map (the paper's funnel);
+      time; host-mediated edges fetch the producer's value and re-send it
+      with the consumer's map (the paper's funnel);
     * ``resident=True`` pins a wave's *shared* plain ``to`` inputs once per
-      device per wave (present-table elision for fan-outs).
+      device per wave (present-table elision for fan-outs);
+    * ``peer=True`` keeps every node's ``out_name`` output resident on its
+      device (``device_out``), hands consumers :class:`PeerRef`
+      placeholders, and moves each cross-device edge once, over the wire
+      the policy routes it to — device→device via
+      :meth:`TargetExecutor.propagate_resident`, or through the host funnel
+      where the policy prices that cheaper.  Without a ``transport`` the
+      default :class:`~.transport.PeerTransport` inherits the pool's
+      topology.  At the end every output is fetched once (the bytes the
+      host-mediated run's ``from_`` maps moved) and every pinned entry is
+      released.
 
     ``policy`` (default :class:`RoundRobin`) decides device placement per
     ready node; placement affects traffic, never values.  Returns
     ``{task: host value}`` for every node.  A region that fails with
     :class:`~.device.DeviceFailure` is not recovered in this port yet.
     """
-    if peer:
-        raise NotImplementedError("run_graph(peer=True): ROADMAP item 9")
     if stragglers is not None:
         raise NotImplementedError("run_graph(stragglers=...): ROADMAP item 11")
     if checkpoint is not None or resume_from is not None:
@@ -251,19 +273,118 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
             "run_graph(checkpoint=/resume_from=): ROADMAP item 11")
     policy = resolve_policy(policy)
     pool = ex.pool
+    if peer and transport is None:
+        from .transport import PeerTransport
+        # inherit the pool's topology (ClusterRuntime installs it on the
+        # cost model): per-pair edge prices and "peer+int8" routing
+        transport = PeerTransport(topology=getattr(pool.cost, "topology", None))
     D = len(pool)
     ctx = PlacementContext(pool=pool, cost=pool.cost, D=D, transport=transport,
                            healthy=pool.health.healthy(D))
     policy.begin(ctx)
     results: Dict[str, Any] = {}
+    # peer mode: every (device, entry) this run pinned — producer outputs and
+    # their propagated copies — released at the end; ``producer`` maps a
+    # task to its output's current (device, entry)
+    peer_entries: Dict[Tuple[int, str], bool] = {}
+    producer: Dict[str, Tuple[int, str]] = {}
+    funnel_cache: Dict[str, Any] = {}   # producer task -> fetched host value
 
     def _join(futs: List[TargetFuture]) -> List[Dict[str, Any]]:
         try:
             return ex.drain(futs)
         except DeviceFailure as err:
             raise NotImplementedError(
-                "recovery from a failed region (re-place, replay): "
+                "recovery from a failed region (re-place, reroute, replay): "
                 "ROADMAP item 11") from err
+
+    def _entry_live(dev: int, entry: str) -> bool:
+        return 0 <= dev < len(pool) and pool.present[dev].get(entry) is not None
+
+    def _fetch_task(name: str) -> Any:
+        dev, entry = producer[name]
+        if not _entry_live(dev, entry):
+            raise NotImplementedError(
+                f"the resident output of {name!r} is gone; rebuilding it "
+                f"from lineage is ROADMAP item 11")
+        try:
+            return ex.fetch_resident(dev, entry)
+        except DeviceFailure as err:
+            raise NotImplementedError(
+                "recovery from a failed fetch: ROADMAP item 11") from err
+
+    def _peer_rewrite(t: TaskNode, dev: int, maps: MapSpec,
+                      region_tag: str) -> MapSpec:
+        new_to: Dict[str, Any] = {}
+        pres: Dict[str, str] = {}
+        for k, v in maps.to.items():
+            if not isinstance(v, PeerRef):
+                new_to[k] = v
+                continue
+            # placement-independent resolution: the live producer map, not
+            # the device the ref was minted with
+            src_dev, entry = producer[v.task]
+            if not _entry_live(src_dev, entry):
+                raise NotImplementedError(
+                    f"the resident output of {v.task!r} is gone; rebuilding "
+                    f"it from lineage is ROADMAP item 11")
+            if src_dev == dev or ((dev, entry) in peer_entries
+                                  and _entry_live(dev, entry)):
+                pres[k] = entry
+                continue
+            route = policy.route_edge(ctx, src_dev, dev,
+                                      ctx.out_bytes.get(v.task, 0))
+            if route == "funnel":
+                # the policy priced the funnel cheaper for this edge: ONE
+                # fetch per producer (outputs are write-once), re-sent per
+                # consumer, like the faithful pattern
+                if v.task not in funnel_cache:
+                    funnel_cache[v.task] = _fetch_task(v.task)
+                new_to[k] = funnel_cache[v.task]
+                continue
+            # per-region edge tag; "peer+int8" accounts the compressed wire
+            # (the payload moves intact, so results stay bit-identical)
+            ex.propagate_resident(src_dev, dev, entry, transport=transport,
+                                  tag=f"{region_tag}:edge",
+                                  compress_wire=(route == "peer+int8"))
+            peer_entries[(dev, entry)] = True
+            pres[k] = entry
+        for k, v in {**maps.tofrom, **maps.alloc, **maps.from_}.items():
+            if isinstance(v, PeerRef):
+                raise TypeError(
+                    f"task {t.name!r}: a PeerRef dependency may only appear "
+                    f"in a to= clause (got it in {k!r})")
+        if out_name not in maps.from_:
+            raise ValueError(
+                f"peer graph requires task {t.name!r} to declare "
+                f"from_[{out_name!r}] (its resident output shape)")
+        entry = f"{tag}:{t.name}"
+        if not _entry_live(dev, entry):
+            ex.alloc_resident(dev, entry, maps.from_[out_name], tag=f"{tag}:out")
+        peer_entries[(dev, entry)] = True
+        producer[t.name] = (dev, entry)
+        ctx.out_bytes[t.name] = _value_nbytes(maps.from_[out_name])
+        return MapSpec(to=new_to,
+                       from_={n: v for n, v in maps.from_.items() if n != out_name},
+                       tofrom=maps.tofrom, alloc=maps.alloc,
+                       firstprivate=maps.firstprivate,
+                       use_globals=maps.use_globals,
+                       present={**_alias_map(maps.present), **pres},
+                       device_out={**_alias_map(maps.device_out),
+                                   out_name: entry})
+
+    def _done(t: TaskNode, out: Dict[str, Any]) -> None:
+        if peer:
+            dev, entry = producer[t.name]
+            results[t.name] = PeerRef(t.name, entry, dev)
+        else:
+            results[t.name] = out[out_name]
+            ctx.out_bytes[t.name] = _value_nbytes(results[t.name])
+
+    def _release_peer_entries() -> None:
+        for dev, n in peer_entries:
+            if dev < len(pool):
+                ex.exit_data(dev, n)
 
     # the topological decomposition is the graph's own; cycles and missing
     # deps surface here, before anything is dispatched
@@ -289,6 +410,8 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                 ctx.load[dev] = ctx.load.get(dev, 0) + 1
                 ctx.home[t.name] = dev
                 maps = t.make_maps({d: results[d] for d in t.deps})
+                if peer:
+                    maps = _peer_rewrite(t, dev, maps, region_tag)
                 plans.append({"t": t, "dev": dev, "tag": region_tag,
                               "maps": maps})
             if resident:
@@ -319,16 +442,19 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                     futs.append(ex.target(t.kernel, p["dev"], p["maps"],
                                           nowait=True, tag=p["tag"]))
                 else:
-                    out = ex.target(t.kernel, p["dev"], p["maps"],
-                                    nowait=False, tag=p["tag"])
-                    results[t.name] = out[out_name]
-                    ctx.out_bytes[t.name] = _value_nbytes(results[t.name])
+                    _done(t, ex.target(t.kernel, p["dev"], p["maps"],
+                                       nowait=False, tag=p["tag"]))
             if futs:
                 joined = True
-                outs = _join(futs)
-                for p, out in zip(plans, outs):
-                    results[p["t"].name] = out[out_name]
-                    ctx.out_bytes[p["t"].name] = _value_nbytes(out[out_name])
+                for p, out in zip(plans, _join(futs)):
+                    _done(p["t"], out)
+        except BaseException:
+            if peer:
+                # failed run: nothing will fetch the resident outputs.  Safe
+                # before the finally below joins a mid-dispatch wave: a
+                # region holds its own references to the entries it binds
+                _release_peer_entries()
+            raise
         finally:
             if futs and not joined:
                 # a mid-dispatch failure: the already-launched regions must
@@ -339,4 +465,12 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                     pass               # the dispatch error propagates
             for dev, n in entered:      # wave boundary: release pins
                 ex.exit_data(dev, n)
+    if peer:
+        # the host view: one fetch per task output, the bytes the
+        # host-mediated run's from_ maps moved; then release every entry
+        try:
+            for name in list(producer):
+                results[name] = _fetch_task(name)
+        finally:
+            _release_peer_entries()
     return results

@@ -36,7 +36,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("mandelbrot", "block_lu", "flash_attention", "flash_decode",
-           "grouped_matmul", "ssd_scan", "busy_loop")
+           "grouped_matmul", "ssd_scan", "busy_loop", "q8_wire")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, and the BOTS workloads and the LM server (dense, MoE, SSM and
 hybrid; its decode steps captured as CUDA graphs, against the eager route)
-launching them end to end.
+launching them end to end; the peer fabric (SEND/RECV between the virtual
+devices' streams, the data-parallel fabrics) with the block-int8 wire
+kernel.
 
 Every test here needs a card and is marked ``cuda``; whether a card is
 present is decided inside the fixture, so every worker collects the same
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import comm_modes as cm
 from repro_torch.bots import alignment as tba
 from repro_torch.bots import fib as tbf
 from repro_torch.bots import mandelbrot as tbm
@@ -40,9 +43,13 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.grouped_matmul import grouped_matmul as k6
 from repro_torch.kernels.grouped_matmul.ops import expert_ffn_matmul
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
+from repro_torch.core import ClusterRuntime, DevicePool, KernelTable, RuntimeConfig
 from repro_torch.kernels.mandelbrot import mandelbrot as k1
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_rows
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
+from repro_torch.kernels.q8_wire import q8_wire as kq
+from repro_torch.kernels.q8_wire.ops import q8_roundtrip
+from repro_torch.kernels.q8_wire.ref import q8_roundtrip_ref
 from repro_torch.kernels.ssd_scan import ssd_scan as k5
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_cluster_ref
@@ -813,3 +820,93 @@ def test_fib_leaf_cuda_matches_plain(cuda_device):
         assert torch.equal(out.cpu(), ref_out) and torch.equal(acc.cpu(), ref_acc)
     assert tbf.verify("small", n_devices=4)
     assert tba.verify("small", n_devices=4)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4099, 1 << 20, 1000003])
+def test_q8_wire_cuda_matches_plain_bitwise(cuda_device, n):
+    """The block-int8 wire kernel against its plain version, at ragged
+    lengths: the round trip bit for bit (on the card and against the CPU),
+    one launch; a zero block and exact halves of the scale included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(n, generator=gen, device=cuda_device) * 3.0
+    x[: min(n, 300)] = 0.0
+    if n > 1000:
+        x[600:604] = torch.tensor([127.0, 63.5, -0.5, 2.5], device=cuda_device)
+    before = kq.launches.count
+    out = q8_roundtrip(x)
+    torch.cuda.synchronize()
+    assert kq.launches.count == before + 1
+    assert torch.equal(out.view(torch.int32), q8_roundtrip_ref(x).view(torch.int32))
+    assert torch.equal(out.cpu().view(torch.int32),
+                       q8_roundtrip_ref(x.cpu()).view(torch.int32))
+    with pytest.raises(ValueError):
+        q8_roundtrip(x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        q8_roundtrip(x, block=64)
+
+
+def test_peer_copy_between_streams_while_the_source_is_rewritten(cuda_device):
+    """SEND/RECV between two virtual devices' streams: the receiver gets the
+    value the source held at the SEND (a kernel's output on the source
+    stream, or a fresh ALLOC's zeros), in a buffer of its own, however the
+    source is rewritten afterwards."""
+    table = KernelTable()
+    table.register("dbl", lambda a: {"a": a * 2.0})
+    pool = DevicePool.virtual(2, table=table, device=cuda_device)
+    try:
+        for _ in range(3):
+            big = torch.randn(1 << 22)
+            hs = pool.alloc(0, big.shape, big.dtype)
+            hd = pool.alloc(1, big.shape, big.dtype)
+            hz = pool.alloc(0, big.shape, big.dtype)
+            pool.peer_copy(0, hz, 1, hd)                   # a fresh ALLOC's zeros
+            assert not bool(pool.transfer_from(1, hd).any())
+            pool.transfer_to(0, hs, big)
+            out = pool.exec_kernel(0, "dbl", buffers={"a": hs})
+            pool.transfer_to_writeback(0, hs, out["a"])
+            pool.peer_copy(0, hs, 1, hd)
+            pool.transfer_to(0, hs, torch.zeros(1 << 22))  # rewrite the source
+            assert torch.equal(pool.transfer_from(1, hd), big * 2.0)
+            pool.sync()
+            src = pool.devices[0].store.read(hs)
+            dst = pool.devices[1].store.read(hd)
+            assert dst.data_ptr() != src.data_ptr() and not bool(src.any())
+            for dev, h in ((0, hs), (1, hd), (0, hz)):
+                pool.free(dev, h)
+        pool.sync()
+    finally:
+        pool.stop_all()
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_dp_fabrics_on_the_card(cuda_device, n):
+    """data_parallel_grads host-mediated / direct / direct + int8 (the wire
+    kernel on every device) and data_parallel_step in both fabrics, at small
+    D: direct within rtol 1e-5, int8 within max|g|/64, step parameters
+    bit-identical (at D = 3 the mean divides by 3)."""
+    d = 256
+    params, batches = cm.make_params(d), cm.make_batches(d, 16, n)
+    grads, steps = {}, {}
+    for mode, compress in (("host-mediated", False), ("direct", False),
+                           ("direct+int8", True)):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=n, comm_mode=mode.split("+")[0],
+                                          compress=compress),
+                            table=cm.make_table(), device=cuda_device)
+        try:
+            before = kq.launches.count
+            grads[mode] = rt.data_parallel_grads("mse_grads", params, batches)
+            assert kq.launches.count - before == (2 * n if compress else 0)
+            if not compress:
+                for _ in range(4):
+                    p = rt.data_parallel_step("mse_grads", params, batches,
+                                              sync_every=2)
+                steps[mode] = p
+        finally:
+            rt.shutdown()
+    ref = grads["host-mediated"]
+    for k in ("w", "b"):
+        torch.testing.assert_close(grads["direct"][k], ref[k], rtol=1e-5, atol=1e-6)
+        assert float((grads["direct+int8"][k] - ref[k]).abs().max()) <= \
+            float(ref["w"].abs().max()) / 64
+        assert torch.equal(steps["direct"][k], steps["host-mediated"][k])
+

@@ -81,7 +81,11 @@ def test_kernel_modules_build_nothing_at_import(fresh_import):
     assert "repro_torch.kernels.grouped_matmul.grouped_matmul" in modules
     assert "repro_torch.models.moe" in modules
     for name in ("models.ssm", "models.mamba_lm", "models.hybrid",
-                 "kernels.ssd_scan.ssd_scan", "kernels.ssd_scan.ops"):
+                 "kernels.ssd_scan.ssd_scan", "kernels.ssd_scan.ops",
+                 # the fabric
+                 "core.compression", "core.topology", "core.transport",
+                 "kernels.q8_wire.q8_wire", "kernels.q8_wire.ops",
+                 "optim.adamw", "optim.schedule", "comm_modes"):
         assert f"repro_torch.{name}" in modules
     assert fresh_import.returncode == 0, fresh_import.stderr
 
@@ -96,6 +100,8 @@ def test_runtime_defaults_to_the_card(no_cuda):
     from repro_torch.core import ClusterRuntime, DevicePool, RuntimeConfig
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ClusterRuntime(RuntimeConfig(n_virtual=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterRuntime(RuntimeConfig(n_virtual=2, comm_mode="direct"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DevicePool.virtual(2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

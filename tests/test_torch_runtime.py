@@ -115,21 +115,26 @@ def test_stream_orders_producer_before_consumer():
 
 
 def test_unported_options_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct"),
-                         device="cpu")
+    # the fabric (ROADMAP item 9) is ported: direct mode and peer graphs run
+    rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct"),
+                          device="cpu")
+    assert T.wavefront_offload(rt.ex, [], peer=True) == {}
+    rt.shutdown()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct",
+                                         transport_retries=1), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, device_capacity_bytes=1),
                          device="cpu")
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2), table=_table(T),
                           device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            T.wavefront_offload(rt.ex, [], peer=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+            T.wavefront_offload(rt.ex, [], peer=True, stragglers=object())
         with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
             T.wavefront_offload(rt.ex, [], policy="heft")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            rt.ex.propagate_resident(0, 1, "x")
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            rt.calibrate()
         with pytest.raises(ValueError):
             T.resolve_policy("no-such-policy")
     finally:
