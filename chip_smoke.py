@@ -47,7 +47,14 @@ runs, printing one JSON line per phase:
    parameters in both fabrics, and the 2 x 2 hierarchical mean equal to the
    serial left-associated mean bit for bit; the wire kernel against its
    plain version on device 0's gradient and at ragged lengths, bit for bit,
-   and its time; then BOTS fib(21) (``recursive_offload``, one
+   and its time; then placement: K=16 over the peer fabric under
+   locality, HEFT (frozen at 5 us and 100 us, and on the card's own EXEC
+   seconds) and SLO, each equal to the serial kernel bit for bit with every
+   bmod on ``cp_async`` and the round-robin run's ``bytes_from``; HEFT at
+   5 us again with each device's present table capped at 64 blocks (LRU
+   spill and refetch), bit-identical to the uncapped run; and mandelbrot
+   strips under locality and HEFT, the round-robin image and bytes with 8
+   K1 launches; then BOTS fib(21) (``recursive_offload``, one
    busy-loop kernel launch per leaf) and alignment (128 queries x 32
    references, the bank resident, query strips) on 8 virtual devices, each
    equal to its serial run bit for bit, after the busy-loop kernel against
@@ -138,6 +145,14 @@ PEAKS = {
 
 MANDEL_SIZE, MANDEL_ITER, MANDEL_DEVICES = 4600, 300, 8
 LU_K, LU_B, LU_DEVICES = 16, 128, 4
+# the placement phase: each device's present table capped at this many
+# 128 x 128 fp32 blocks (HEFT comm-bound packs the whole factorization, 1,496
+# resident task outputs, onto one virtual device)
+CAP_BLOCKS = 64
+# rerun under torch.profiler: HEFT comm-bound, and locality, which packs the
+# whole factorization onto one virtual device (HEFT at 5 us spreads at K=16:
+# a device's modeled clock passes a 64 KiB edge's 0.57 ms within one wave)
+PROFILED_POLICIES = ("locality", "heft-comm")
 LU_LARGE = (5, 96)                      # the reference's "large" size
 # the fabric: racks, devices per rack, spine bandwidth / rack bandwidth
 FABRIC_TOPO = (2, 2, 0.1)
@@ -1117,7 +1132,7 @@ def phase_mandelbrot(torch):
              f"{MANDEL_DEVICES} (one per strip)")
     if not (equal and sane):
         fail("mandelbrot strips differ from the serial image")
-    return launches
+    return launches, img, s
 
 
 def _sparselu_once(torch, K: int, B: int, n_devices: int, fabric: str = "host-mediated"):
@@ -1196,6 +1211,143 @@ def phase_sparselu_fabric(torch, host_row: dict) -> list:
     if not rows[1]["bytes_peer_cross_rack"] > 0:
         fail(f"sparselu direct-2x2 put no bytes on the spine: {rows[1]}")
     return rows
+
+
+def _placement_policy(name: str):
+    from repro_torch.core import HeftPlacement, SloPlacement
+    return {"locality": lambda: "locality",
+            # frozen estimates: deterministic placement (benchmarks/
+            # sched_policies.py's two operating points)
+            "heft-comm": lambda: HeftPlacement(default_task_s=5e-6, use_observed=False),
+            "heft-compute": lambda: HeftPlacement(default_task_s=100e-6,
+                                                  use_observed=False),
+            # the default: the card's own EXEC seconds, as they retire
+            "heft-observed": lambda: HeftPlacement(),
+            "slo": lambda: SloPlacement(default_task_s=5e-6, use_observed=False)}[name]()
+
+
+def _placed_sparselu(torch, mat, ser, policy: str, cap=None, profile: bool = False):
+    """One K=16 sparselu wavefront over the peer fabric (``comm_mode=
+    "direct"``) under ``policy``, optionally with each device's present
+    table capped; K2's counts are set to 0 just before it and read just
+    after.  Returns the row and the factorization."""
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.kernels.block_lu import block_lu as k2
+    K = mat.shape[0]
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES, comm_mode="direct",
+                                      device_capacity_bytes=cap),
+                        table=bl._make_table(K), device="cuda")
+    pol = _placement_policy(policy)
+    try:
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = bl.wavefront(rt, mat, peer=True, policy=pol)
+        wall = time.perf_counter() - t0
+        launches, paths = k2.launches.count, _path_counts(k2)
+        s = rt.cost.summary()
+        report = rt.cost.placement_report()
+        mem = rt.memory_report()
+        used = len({c.device for c in rt.cost.compute})
+        busy = (device_busy(torch, lambda: bl.wavefront(rt, mat, peer=True, policy=pol))
+                if profile else None)
+    finally:
+        rt.shutdown()
+    lu = bl.assemble(res, K)
+    row = {"phase": "placement_sparselu", "policy": policy, "K": K,
+           "B": mat.shape[2], "devices": LU_DEVICES, "capacity_bytes": cap,
+           "wall_s": wall, "devices_used": used, "bytes_to": s["bytes_to"],
+           "bytes_from": s["bytes_from"], "bytes_peer": s["bytes_peer"],
+           "bmod_launches": launches, "bmod_path_launches": paths,
+           "max_abs_diff_vs_serial": float((lu - ser).abs().max()),
+           "placements": len(report),
+           "observed_device_ok": all(r["observed_device_ok"] for r in report),
+           "cold_predictions": s["cold_predictions"]}
+    if cap is not None:
+        row.update({k: sum(m[k] for m in mem.values())
+                    for k in ("evictions", "refetches", "bytes_reconciled",
+                              "bytes_refetched")})
+    if busy is not None:
+        row["profiled"] = busy
+    emit(row)
+    expect = sum(m * m for m in range(K))
+    if launches != expect or paths["cp_async"] != launches:
+        fail(f"placement {policy}: bmod launched {launches} times ({paths} by path); "
+             f"expected {expect}, every one on cp_async")
+    if not row["observed_device_ok"]:
+        fail(f"placement {policy}: a region ran off the device its policy placed it on")
+    return row, lu
+
+
+def phase_placement(torch, direct_row: dict, mandel_img, mandel_s: dict):
+    """Placement on the card.  Sparselu K=16, B=128, D=4 over the peer fabric
+    under locality, HEFT comm-bound, HEFT compute-bound, HEFT observed and
+    SLO, beside the fabric phase's round-robin run (``direct_row``): each
+    equals the serial kernel bit for bit with every K2 launch on cp_async
+    and fetches the same bytes; ``PROFILED_POLICIES`` run once more under
+    ``torch.profiler``.  Then HEFT comm-bound with each present table capped
+    at ``CAP_BLOCKS`` blocks: bit-identical to the uncapped run, with
+    evictions and refetches.  Then mandelbrot strips at D=8 under locality
+    and HEFT comm-bound: the round-robin image, bytes and 8 K1 launches.
+    Returns the phase's K1 launches and its sparselu rows."""
+    from repro_torch.bots import mandelbrot as bm
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.kernels.mandelbrot import mandelbrot as k1
+    mat = bl._matrix(LU_K, LU_B)
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=1), table=bl._make_table(LU_K),
+                        device="cuda")
+    try:
+        ser = bl.serial(rt, mat)
+    finally:
+        rt.shutdown()
+    rows, lus = {}, {}
+    for policy in ("locality", "heft-comm", "heft-compute", "heft-observed", "slo"):
+        rows[policy], lus[policy] = _placed_sparselu(torch, mat, ser, policy,
+                                                     profile=policy in PROFILED_POLICIES)
+    cap = CAP_BLOCKS * LU_B * LU_B * 4
+    capped, lu_capped = _placed_sparselu(torch, mat, ser, "heft-comm", cap=cap)
+    for policy, r in rows.items():
+        if r["max_abs_diff_vs_serial"] != 0.0:
+            fail(f"placement {policy}: sparselu differs from the serial kernel by "
+                 f"{r['max_abs_diff_vs_serial']}")
+        if r["bytes_from"] != direct_row["bytes_from"]:
+            fail(f"placement {policy}: bytes_from {r['bytes_from']} != round-robin "
+                 f"{direct_row['bytes_from']}")
+    if not torch.equal(lu_capped, lus["heft-comm"]):
+        fail("capped sparselu differs from the uncapped HEFT run")
+    if not (capped["evictions"] >= 1 and capped["refetches"] >= 1):
+        fail(f"capped sparselu: {capped['evictions']} evictions, "
+             f"{capped['refetches']} refetches; expected at least one of each")
+    n = MANDEL_SIZE
+    k1_launches = 0
+    for policy in ("locality", "heft-comm"):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=MANDEL_DEVICES),
+                            table=bm._make_table(n, n, MANDEL_ITER), device="cuda")
+        try:
+            k1.launches.reset()
+            t0 = time.perf_counter()
+            img = bm.strips(rt, bm.all_rows(n), n, nowait=True,
+                            policy=_placement_policy(policy))
+            wall = time.perf_counter() - t0
+            launches = k1.launches.count
+            s = rt.cost.summary()
+            used = len({c.device for c in rt.cost.compute})
+        finally:
+            rt.shutdown()
+        k1_launches += launches
+        equal = bool(torch.equal(img, mandel_img))
+        emit({"phase": "placement_mandelbrot", "policy": policy, "size": n,
+              "devices": MANDEL_DEVICES, "devices_used": used, "wall_s": wall,
+              "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
+              "kernel_launches": launches, "image_equal_round_robin": equal})
+        if not equal or launches != MANDEL_DEVICES:
+            fail(f"placement mandelbrot {policy}: image equal {equal}, "
+                 f"{launches} K1 launches")
+        if (s["bytes_to"], s["bytes_from"]) != (mandel_s["bytes_to"], mandel_s["bytes_from"]):
+            fail(f"placement mandelbrot {policy}: bytes {s['bytes_to']}/{s['bytes_from']} "
+                 f"!= round-robin {mandel_s['bytes_to']}/{mandel_s['bytes_from']}")
+    return k1_launches, [*rows.values(), capped]
 
 
 def phase_dp_fabric(torch, peaks):
@@ -2023,14 +2175,18 @@ def main() -> int:
     k6 = phase_gmm_kernel(torch, peaks)
     k5 = phase_ssd_kernel(torch, peaks)
     phase_listings(torch)
-    k1_launches = phase_mandelbrot(torch)
+    k1_launches, mandel_img, mandel_s = phase_mandelbrot(torch)
     lu_rows = [_sparselu_once(torch, LU_K, LU_B, LU_DEVICES)]
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
     lu_rows += phase_sparselu_fabric(torch, lu_rows[0])
+    kq8, kq8_launches = phase_dp_fabric(torch, peaks)
+    placed_k1, placed_rows = phase_placement(torch, lu_rows[1], mandel_img, mandel_s)
+    del mandel_img
+    k1_launches += placed_k1
+    lu_rows += placed_rows
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
                 for p in lu_rows[0]["bmod_path_launches"]}
-    kq8, kq8_launches = phase_dp_fabric(torch, peaks)
     kbusy, kbusy_launches = phase_fib_alignment(torch, peaks)
     serve_runs = [*phase_serve(torch).values(), *phase_serve_moe(torch).values()]
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):

@@ -8,7 +8,7 @@ launches the hand-written CUDA kernel, on the CPU its plain version.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -38,14 +38,15 @@ def all_rows(height: int) -> torch.Tensor:
 
 
 def strips(rt: ClusterRuntime, rows: torch.Tensor, width: int, *,
-           nowait: bool = False) -> torch.Tensor:
-    """The offloaded program: one strip of ``rows`` per device."""
+           nowait: bool = False, policy: Any = None) -> torch.Tensor:
+    """The offloaded program: one strip of ``rows`` per device, placed by
+    ``policy`` (default round-robin)."""
     def make_maps(start, length):
         return MapSpec(to={"rows": sec(rows, start, length)},
                        from_={"out": TensorSpec((length, width), torch.int32)})
 
     return offload_strips(rt.ex, "mandel_strip", rows.shape[0], make_maps,
-                          nowait=nowait)
+                          nowait=nowait, policy=policy)
 
 
 def serial(rt: ClusterRuntime, rows: torch.Tensor, width: int) -> torch.Tensor:

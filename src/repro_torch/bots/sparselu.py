@@ -11,7 +11,7 @@ plain PyTorch.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -122,16 +122,16 @@ def _build_dag(mat: torch.Tensor, K: int, B: int):
 
 
 def wavefront(rt: ClusterRuntime, mat: torch.Tensor, *,
-              peer: bool = False) -> Dict[str, torch.Tensor]:
+              peer: bool = False, policy: Any = None) -> Dict[str, torch.Tensor]:
     """The offloaded program: the task DAG as nowait waves, with each wave's
     shared operands pinned once per device (``resident=True``).
     ``peer=True`` keeps every block on its device and moves each dependency
     device→device over the runtime's peer fabric instead of through the
     host (the DAG's edges leave the funnel; each block is fetched once at
-    the end)."""
+    the end).  ``policy`` places the tasks (default round-robin)."""
     K, _, B, _ = mat.shape
     return rt.wavefront_offload(_build_dag(mat, K, B), nowait=True,
-                                resident=True, peer=peer)
+                                resident=True, peer=peer, policy=policy)
 
 
 def serial(rt: ClusterRuntime, mat: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,15 @@ Public API (counterparts of ``repro.core``):
   MapSpec / sec / TargetExecutor   target regions with map(to/from/tofrom/alloc)
   strip_partition / offload_strips / recursive_offload / wavefront_offload
   TaskGraph / TaskNode / run_graph    task-graph IR the patterns lower into
+  RoundRobin / LocalityAffinity / HeftPlacement / SloPlacement   placement policies
   Transport / HostFunnelTransport / PeerTransport   the wire, and collectives
   Topology                     racks and per-pair links of the peer fabric
   ClusterRuntime / RuntimeConfig   deployable runtime (host-mediated or
                                direct), data-parallel fabric, cost model
 """
-from .costmodel import (CostModel, Event, LinkModel, PAPER_ETHERNET,
-                        PeerRecord, TimelineSpan)
+from .costmodel import (CostModel, DEFAULT_KERNEL_TIME_S, Event, LinkModel,
+                        PAPER_ETHERNET, PeerRecord, PlacementRecord,
+                        TimelineSpan)
 from .device import (Command, DeviceFailure, DevicePool, DeviceStoppedError,
                      HealthRegistry, NodeDevice, SLOT_STREAM, StreamTicket)
 from .kernel_table import GLOBAL_KERNEL_TABLE, KernelTable, kernel
@@ -23,8 +25,9 @@ from .runtime import ClusterRuntime, RuntimeConfig
 from .scheduler import (DagTask, PeerRef, offload_strips, recursive_offload,
                         strip_partition, wavefront_offload)
 from .target import MapSpec, Section, TargetExecutor, TargetFuture, sec
-from .taskgraph import (PlacementContext, PlacementPolicy, RoundRobin,
-                        TaskGraph, TaskNode, resolve_policy, run_graph)
+from .taskgraph import (HeftPlacement, LocalityAffinity, PlacementContext,
+                        PlacementPolicy, RoundRobin, SloPlacement, TaskGraph,
+                        TaskNode, resolve_policy, run_graph)
 from .topology import Topology
 from .transport import HostFunnelTransport, PeerTransport, Transport
 
@@ -38,9 +41,10 @@ __all__ = [
     "strip_partition", "offload_strips", "recursive_offload",
     "wavefront_offload", "DagTask", "PeerRef",
     "TaskGraph", "TaskNode", "run_graph", "resolve_policy",
-    "PlacementPolicy", "PlacementContext", "RoundRobin",
+    "PlacementPolicy", "PlacementContext", "RoundRobin", "LocalityAffinity",
+    "HeftPlacement", "SloPlacement",
     "ClusterRuntime", "RuntimeConfig",
     "Transport", "HostFunnelTransport", "PeerTransport", "Topology",
-    "CostModel", "LinkModel", "Event", "PeerRecord", "TimelineSpan",
-    "PAPER_ETHERNET",
+    "CostModel", "LinkModel", "Event", "PeerRecord", "PlacementRecord",
+    "TimelineSpan", "PAPER_ETHERNET", "DEFAULT_KERNEL_TIME_S",
 ]

@@ -16,9 +16,13 @@ Peer (device→device) messages are timed per directed link: on the one
 pair's own link (intra-rack vs spine), and the spine's share is counted in
 ``bytes_peer_cross_rack``.
 
+Cost-driven placement reads per-kernel time estimates from the live
+observations (:meth:`CostModel.kernel_time`) and logs each decision
+(:meth:`CostModel.record_placement`, :meth:`CostModel.placement_report`).
+
 Left for later slices: the TPU roofline constants (the port measures on the
-card instead), per-kernel time estimates for cost-driven placement (ROADMAP
-item 10), calibration profiles and the roofline report (item 12).
+card instead), calibration profiles and the roofline report (ROADMAP item
+12).
 """
 from __future__ import annotations
 
@@ -42,6 +46,14 @@ class LinkModel:
 # The paper's cluster: Gbit Ethernet (§5.2). ~125 MB/s peak, ~50us MPI latency.
 PAPER_ETHERNET = LinkModel("gbit-ethernet", 125e6, 50e-6)
 
+# The documented cold-start compute estimate: what a cost-driven policy
+# charges for a kernel with no observations and no calibration seed (1 ms).
+# Every time the fallback ladder bottoms out here the model counts a cold
+# prediction (``summary()["cold_predictions"]``).
+DEFAULT_KERNEL_TIME_S = 1e-3
+
+_ITEM_12 = "calibration profiles and the roofline report are ROADMAP item 12"
+
 
 @dataclass
 class TransferRecord:
@@ -58,6 +70,18 @@ class ComputeRecord:
     seconds: float          # measured task compute time
     tag: str = ""
     kernel: str = ""        # registered kernel name
+
+
+@dataclass
+class PlacementRecord:
+    """One placement decision a cost-driven policy predicted: its
+    earliest-finish-time estimate (a policy clock value) for region tag
+    ``task``, joined later with the compute that ran under that tag."""
+
+    task: str
+    device: int
+    predicted_s: float
+    policy: str = ""
 
 
 @dataclass
@@ -116,11 +140,17 @@ class CostModel:
         # optional Topology: each directed peer pair is timed on ITS link
         # and cross-rack traffic is counted apart (bytes_peer_cross_rack)
         self.topology = topology
+        # a calibration profile seeds kernel_time in the reference; loading
+        # one is ROADMAP item 12, so the port's stays None
+        self.profile = None
+        # kernel_time estimates that fell to the default (blind placements)
+        self.cold_predictions = 0
         self.transfers: List[TransferRecord] = []
         self.compute: List[ComputeRecord] = []
         self.adjustments: List[TransferRecord] = []
         self.peers: List[PeerRecord] = []
         self.events: List[Event] = []
+        self.placements: List[PlacementRecord] = []
         self._lock = threading.Lock()
 
     def reset(self) -> None:
@@ -130,6 +160,8 @@ class CostModel:
             self.adjustments.clear()
             self.peers.clear()
             self.events.clear()
+            self.placements.clear()
+            self.cold_predictions = 0
 
     # -- accounting ---------------------------------------------------------
     def record_transfer(self, direction: str, device: int, nbytes: int,
@@ -147,6 +179,60 @@ class CostModel:
                                               kernel))
             self.events.append(Event("compute", device, tag=tag,
                                      seconds=float(seconds)))
+
+    def record_placement(self, task: str, device: int, predicted_s: float,
+                         policy: str = "") -> None:
+        """Log a cost-driven placement decision (prediction side)."""
+        with self._lock:
+            self.placements.append(PlacementRecord(task, device,
+                                                   float(predicted_s), policy))
+
+    def kernel_time(self, kernel: str, *,
+                    default: Optional[float] = None) -> float:
+        """Estimated compute seconds for ``kernel``, never ``None``: the mean
+        of the live observations, then the calibration profile's seed, then
+        ``default`` (else :data:`DEFAULT_KERNEL_TIME_S`).  The last rung is a
+        *cold prediction*, counted in ``summary()["cold_predictions"]``."""
+        with self._lock:
+            ts = [c.seconds for c in self.compute if c.kernel == kernel]
+        if ts:
+            return sum(ts) / len(ts)
+        if self.profile is not None:
+            seed = self.profile.kernel_seed(kernel)
+            if seed is not None:
+                return seed
+        with self._lock:
+            self.cold_predictions += 1
+        return default if default is not None else DEFAULT_KERNEL_TIME_S
+
+    def kernel_observations(self, kernel: str) -> int:
+        """How many retired regions back the :meth:`kernel_time` estimate."""
+        with self._lock:
+            return sum(1 for c in self.compute if c.kernel == kernel)
+
+    def placement_report(self, *, roofline: bool = False) -> List[Dict[str, object]]:
+        """Predicted-vs-observed rows for cost-driven placements: each
+        :class:`PlacementRecord` joined with the compute records that ran
+        under its region tag (``predicted_s`` is a policy clock value, not a
+        duration).  ``roofline=True`` is ROADMAP item 12."""
+        if roofline:
+            raise NotImplementedError(f"placement_report(roofline=True): {_ITEM_12}")
+        with self._lock:
+            placements = list(self.placements)
+            compute = list(self.compute)
+        report = []
+        for p in placements:
+            obs = [c for c in compute if _tag_matches(c.tag, p.task)]
+            report.append({
+                "task": p.task, "policy": p.policy, "device": p.device,
+                "predicted_s": p.predicted_s,
+                "observed_s": sum(c.seconds for c in obs),
+                "observed_device_ok": all(c.device == p.device for c in obs),
+            })
+        return report
+
+    def load_profile(self, profile, **kw) -> None:
+        raise NotImplementedError(f"CostModel.load_profile: {_ITEM_12}")
 
     def record_peer(self, src: int, dst: int, nbytes: int,
                     n_messages: int = 1, tag: str = "") -> None:
@@ -172,7 +258,7 @@ class CostModel:
         with self._lock:
             before = (len(self.transfers) + len(self.compute)
                       + len(self.adjustments) + len(self.peers)
-                      + len(self.events))
+                      + len(self.events) + len(self.placements))
             self.transfers = [t for t in self.transfers
                               if not _tag_matches(t.tag, prefix)]
             self.compute = [c for c in self.compute
@@ -183,9 +269,11 @@ class CostModel:
                           if not _tag_matches(p.tag, prefix)]
             self.events = [e for e in self.events
                            if not _tag_matches(e.tag, prefix)]
+            self.placements = [p for p in self.placements
+                               if not _tag_matches(p.task, prefix)]
             return before - (len(self.transfers) + len(self.compute)
                              + len(self.adjustments) + len(self.peers)
-                             + len(self.events))
+                             + len(self.events) + len(self.placements))
 
     def rename_tag(self, prefix: str, new_prefix: str) -> int:
         """Rewrite every record in region ``prefix`` into ``new_prefix`` (the
@@ -198,6 +286,10 @@ class CostModel:
                 if _tag_matches(rec.tag, prefix):
                     renamed += 1
                     rec.tag = new_prefix + rec.tag[len(prefix):]
+            for p in self.placements:
+                if _tag_matches(p.task, prefix):
+                    renamed += 1
+                    p.task = new_prefix + p.task[len(prefix):]
         return renamed
 
     # -- summaries ------------------------------------------------------------
@@ -332,7 +424,5 @@ class CostModel:
             "compute_s": self.compute_time(),
             "makespan_s": self.makespan(),
             "makespan_overlap_s": self.makespan(overlap=True),
-            # no cost-driven placement yet (ROADMAP item 10): never a
-            # blind kernel-time estimate
-            "cold_predictions": 0.0,
+            "cold_predictions": float(self.cold_predictions),
         }

@@ -92,12 +92,16 @@ class NodeDevice:
     """One offload device: buffer store + kernel executor on a share of the card."""
 
     def __init__(self, index: int, device: torch.device, *,
-                 hostname: str = "localhost") -> None:
+                 hostname: str = "localhost",
+                 capacity_bytes: Optional[int] = None) -> None:
         self.index = index
         self.hostname = hostname
         self.device = device
         self.store = MediaryStore(device)
         self.stopped = False
+        # resident-memory budget for this device's present table (None =
+        # unbounded); enforced by the executor's LRU spill path, not here
+        self.capacity_bytes = capacity_bytes
         self.stream = (torch.cuda.Stream(device=device)
                        if device.type == "cuda" else None)
 
@@ -347,7 +351,8 @@ class DevicePool:
 
     def __init__(self, devices: Sequence[NodeDevice], *,
                  table: Optional[KernelTable] = None,
-                 link: LinkModel = PAPER_ETHERNET) -> None:
+                 link: LinkModel = PAPER_ETHERNET,
+                 capacity_bytes: Optional[int] = None) -> None:
         self.devices = list(devices)
         self.table = table or GLOBAL_KERNEL_TABLE
         self.cost = CostModel(link)
@@ -355,7 +360,10 @@ class DevicePool:
         self.mirrors = [HostMirror() for _ in self.devices]
         # RLocks: _submit re-acquires the issue lock the issue methods hold
         self.locks = [threading.RLock() for _ in self.devices]
-        self.present = [PresentTable() for _ in self.devices]
+        # per-device capacity wins over the pool-wide default
+        self.present = [PresentTable(capacity_bytes=(
+            d.capacity_bytes if d.capacity_bytes is not None
+            else capacity_bytes)) for d in self.devices]
         self.env_locks = [threading.RLock() for _ in self.devices]
         self.trace: List[Command] = []
         self._trace_lock = threading.Lock()
@@ -598,6 +606,11 @@ class DevicePool:
     def transfer_to(self, device: int, handle: int, value: Any,
                     section: Optional[slice] = None, tag: str = "") -> "_cf.Future":
         value = as_host_tensor(value)
+        if value.device.type == "cpu":
+            # the XFER runs later on the device's worker: send the value as
+            # it is now, not as an in-place change may leave it by then
+            # (the reference's jax.Array cannot change after the call)
+            value = value.clone()
         nbytes = value.numel() * value.element_size()
         with self.locks[device]:
             cmd = Command("XFER_TO", device, handle=handle, nbytes=nbytes,

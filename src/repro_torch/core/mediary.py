@@ -182,6 +182,21 @@ class PresentEntry:
     # the device copy has advanced past host_leaves (a ``device_out`` map
     # wrote it on-device and nothing fetched it yet)
     device_ahead: bool = False
+    # capacity eviction spilled the device copy: ``handles`` are empty, the
+    # authoritative value lives on the host (device-ahead entries are
+    # reconciled to the host before their buffers are freed), and the next
+    # present binding refetches transparently
+    spilled: bool = False
+    # what a refetch sends while spilled: the reconcile fetch, or a copy of
+    # ``host_leaves`` taken at the spill.  ``host_leaves`` stay the caller's
+    # objects for the identity test; being mutable, they may change in
+    # place after the spill, and a refetch must restore the device copy as
+    # it was, as it would be had the entry stayed resident
+    spill_leaves: Optional[List[Any]] = None
+    # LRU clock stamp (PresentTable._clock at last touch)
+    last_used: int = 0
+    # pinned entries are never eviction candidates, whatever their refcount
+    pinned: bool = False
 
     def nbytes(self) -> int:
         return sum(s.nbytes for s in self.specs)
@@ -210,15 +225,28 @@ class PresentTable:
     A map clause whose variable is *present* with an unchanged host value
     skips allocation and transfer and only adjusts the reference count.
     Synchronization is the owner's job (the pool holds one data-environment
-    lock per device).  Capacity-bounded spill and refetch are ROADMAP item
-    10.
+    lock per device).
+
+    ``capacity_bytes`` (None = unbounded) caps the *resident* device memory
+    this table may hold.  The table itself never moves bytes: the
+    :class:`~repro_torch.core.target.TargetExecutor` evicts through
+    :meth:`lru_victim` — the least-recently-used entry that is neither
+    pinned nor retained by an in-flight region (refcount > 1) is *spilled*
+    (device buffers freed, logical entry kept) and refetched on its next
+    binding.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, capacity_bytes: Optional[int] = None) -> None:
         self._entries: Dict[str, PresentEntry] = {}
+        self.capacity_bytes = capacity_bytes
         self.hits = 0
         self.misses = 0
         self.bytes_elided = 0
+        self.evictions = 0
+        self.refetches = 0
+        self.bytes_reconciled = 0     # device-ahead content fetched at spill
+        self.bytes_refetched = 0      # spilled content re-sent at next bind
+        self._clock = 0               # LRU stamp source
 
     def get(self, name: str) -> Optional[PresentEntry]:
         return self._entries.get(name)
@@ -226,10 +254,32 @@ class PresentTable:
     def add(self, entry: PresentEntry) -> None:
         if entry.name in self._entries:
             raise KeyError(f"{entry.name!r} already present")
+        self.touch(entry)
         self._entries[entry.name] = entry
 
+    def touch(self, entry_or_name) -> None:
+        """Stamp an entry as most-recently-used (LRU bookkeeping)."""
+        e = (self._entries.get(entry_or_name)
+             if isinstance(entry_or_name, str) else entry_or_name)
+        if e is not None:
+            self._clock += 1
+            e.last_used = self._clock
+
     def used_bytes(self) -> int:
-        return sum(e.nbytes() for e in self._entries.values())
+        """Device bytes held by resident (non-spilled) entries."""
+        return sum(e.nbytes() for e in self._entries.values() if not e.spilled)
+
+    def lru_victim(self, protect: Sequence[str] = ()) -> Optional[PresentEntry]:
+        """Least-recently-used evictable entry, or None: not pinned, not
+        spilled, not in ``protect``, and refcount <= 1 (a higher count means
+        an in-flight region retains it)."""
+        best: Optional[PresentEntry] = None
+        for e in self._entries.values():
+            if e.pinned or e.spilled or e.refcount > 1 or e.name in protect:
+                continue
+            if best is None or e.last_used < best.last_used:
+                best = e
+        return best
 
     def __contains__(self, name: str) -> bool:
         return name in self._entries
@@ -247,7 +297,7 @@ class PresentTable:
         to move.  Retains the entry (refcount++); pair with :meth:`release`.
         """
         e = self._entries.get(name)
-        if (e is None or e.device_ahead
+        if (e is None or e.device_ahead or e.spilled
                 or not same_treedef(e.treedef, treedef)
                 or len(e.host_leaves) != len(leaves)
                 or not all(leaf_unchanged(a, v, b) for a, v, b in
@@ -256,6 +306,7 @@ class PresentTable:
             return None
         e.refcount += 1
         self.hits += 1
+        self.touch(e)
         self.bytes_elided += max(0, e.nbytes() - e.debit)
         e.debit = 0
         return e
@@ -265,12 +316,13 @@ class PresentTable:
         """Entry iff ``name`` is present with matching shapes/dtypes (an
         output map reuses the resident buffer).  Retains the entry."""
         e = self._entries.get(name)
-        if (e is None or not same_treedef(e.treedef, treedef)
+        if (e is None or e.spilled or not same_treedef(e.treedef, treedef)
                 or len(e.specs) != len(specs)
                 or any(a != b for a, b in zip(e.specs, specs))):
             return None
         e.refcount += 1
         self.hits += 1
+        self.touch(e)
         return e
 
     def release(self, name: str) -> Optional[PresentEntry]:
@@ -288,7 +340,13 @@ class PresentTable:
         return {"hits": self.hits, "misses": self.misses,
                 "bytes_elided": self.bytes_elided,
                 "resident": len(self._entries),
-                "resident_bytes": self.used_bytes()}
+                "resident_bytes": self.used_bytes(),
+                "capacity_bytes": (-1 if self.capacity_bytes is None
+                                   else self.capacity_bytes),
+                "spilled": sum(1 for e in self._entries.values() if e.spilled),
+                "evictions": self.evictions, "refetches": self.refetches,
+                "bytes_reconciled": self.bytes_reconciled,
+                "bytes_refetched": self.bytes_refetched}
 
 
 class HostMirror(SlotTableBase):

@@ -16,9 +16,12 @@ trainer *fabric* built from target regions:
 * ``compress=True`` — the block-int8 wire: error feedback on the host hop,
   the wire's round trip on each device before the peer ring.
 
+``device_capacity_bytes`` bounds each device's present table: making a
+buffer resident past it spills the least-recently-used evictable entry and
+the next binding refetches it (capacity changes traffic, never results).
+
 Left for later slices, each raising ``NotImplementedError``: transport
-retries (ROADMAP item 11), per-device capacity (item 10) and calibration
-(item 12).
+retries (ROADMAP item 11) and calibration (item 12).
 """
 from __future__ import annotations
 
@@ -55,7 +58,11 @@ class RuntimeConfig:
     topology: Optional[Topology] = None
     compress: bool = False
     max_host_threads: int = 16
-    device_capacity_bytes: Optional[int] = None   # ROADMAP item 10
+    # resident-memory budget per device's present table, in bytes (None =
+    # unbounded); past it the LRU evictable entry spills (device-ahead
+    # content fetched to the host first) and is refetched on its next
+    # binding
+    device_capacity_bytes: Optional[int] = None
     transport_retries: int = 0                    # ROADMAP item 11
     # where every virtual device lives: the card unless the caller asks for
     # the CPU (raises when CUDA is absent)
@@ -82,9 +89,6 @@ class ClusterRuntime:
         """``device`` overrides ``cfg.device`` when given."""
         if cfg.comm_mode not in ("host-mediated", "direct"):
             raise ValueError(f"unknown comm_mode {cfg.comm_mode!r}")
-        if cfg.device_capacity_bytes is not None:
-            raise NotImplementedError(
-                "device_capacity_bytes (spill/refetch): ROADMAP item 10")
         if cfg.transport_retries > 0:
             raise NotImplementedError(
                 "transport_retries (peer retry and funnel fallback): "
@@ -92,11 +96,13 @@ class ClusterRuntime:
         self.cfg = cfg
         self.device = resolve_device(cfg.device if device is None else device)
         if cfg.n_virtual is not None:
-            self.pool = DevicePool.virtual(cfg.n_virtual, device=self.device,
-                                           table=table, link=cfg.link)
+            self.pool = DevicePool.virtual(
+                cfg.n_virtual, device=self.device, table=table, link=cfg.link,
+                capacity_bytes=cfg.device_capacity_bytes)
         else:
-            self.pool = DevicePool.from_config(cfg.nodes, device=self.device,
-                                               table=table, link=cfg.link)
+            self.pool = DevicePool.from_config(
+                cfg.nodes, device=self.device, table=table, link=cfg.link,
+                capacity_bytes=cfg.device_capacity_bytes)
         self.ex = TargetExecutor(self.pool, max_host_threads=cfg.max_host_threads)
         if cfg.topology is not None and cfg.topology.n_devices != len(self.pool):
             self.shutdown()
@@ -125,7 +131,8 @@ class ClusterRuntime:
         return self.ex.taskwait()
 
     def wavefront_offload(self, tasks: Sequence[Any], **kw) -> Dict[str, Any]:
-        """Run a task DAG on this runtime's executor.  ``peer=True`` uses
+        """Run a task DAG on this runtime's executor (``policy=...`` picks
+        placement).  ``peer=True`` uses
         this runtime's transport when it is a peer fabric
         (``comm_mode="direct"``); under a host-mediated runtime the
         scheduler's default :class:`~.transport.PeerTransport` carries the
@@ -139,7 +146,10 @@ class ClusterRuntime:
 
     def memory_report(self) -> Dict[int, Dict[str, int]]:
         """Per-device present-table accounting: hits, misses, bytes elided,
-        resident entries and bytes."""
+        resident entries and bytes against the capacity (-1 when
+        unbounded), and the spill path's counters — evictions, refetches,
+        bytes reconciled (device-ahead content fetched at spill) and
+        refetched."""
         return {d: self.pool.present[d].stats()
                 for d in range(len(self.pool))}
 

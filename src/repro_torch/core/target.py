@@ -33,8 +33,14 @@ only the changed leaves.  Tensors are mutable, so "unmodified" is identity
 half of a data environment) and ``propagate_resident`` fulfills a present
 entry on another device straight from a device copy, over the peer fabric.
 
-Left for later slices: capacity spill/refetch (ROADMAP item 10),
-self-healing of failed writers (item 11), declare-target globals.
+A device's present table may be capacity-bounded
+(``RuntimeConfig.device_capacity_bytes``): making room spills the
+least-recently-used unpinned, unretained entry — its device-ahead content is
+fetched to the host first, its buffers freed, its logical entry kept — and
+the next binding refetches it.  A spill changes traffic, never a result.
+
+Left for later slices: self-healing of failed writers (ROADMAP item 11),
+declare-target globals.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ import contextlib
 import math
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Mapping, Tuple, Union
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -215,8 +221,11 @@ class TargetExecutor:
             ent = pool.present[device].get(name)
             if ent is None:
                 # convert before allocating: a bad leaf must fail with zero
-                # device state
+                # device state, and the capacity reservation needs the size
                 vals = [as_host_tensor(leaf) for leaf in leaves]
+                self._reserve_capacity(
+                    device, sum(v.numel() * v.element_size() for v in vals),
+                    tag=tag)
                 hs, specs, wfuts = [], [], []
                 try:
                     for v in vals:
@@ -238,9 +247,13 @@ class TargetExecutor:
                 entry.debit = entry.nbytes()
                 pool.present[device].add(entry)
             else:
-                # refresh first: a structure-mismatch error must not leak a
-                # reference
-                self._refresh(device, ent, leaves, treedef, tag)
+                # refresh (or revive a spilled entry) first: a structure-
+                # mismatch error must not leak a reference
+                if ent.spilled:
+                    self._revive(device, ent, leaves, treedef, tag)
+                else:
+                    self._refresh(device, ent, leaves, treedef, tag)
+                pool.present[device].touch(ent)
                 if retain:
                     ent.refcount += 1
 
@@ -283,6 +296,156 @@ class TargetExecutor:
             ent.version += 1
             ent.device_ahead = False       # the host push wins from here on
 
+    def _alloc_specs(self, device: int, specs: Sequence[TensorSpec],
+                     tag: str) -> List[int]:
+        """ALLOC one handle per spec; on failure free the ones already made."""
+        pool = self.pool
+        hs: List[int] = []
+        try:
+            for s in specs:
+                hs.append(pool.alloc(device, s.shape, s.dtype, tag=tag))
+        except BaseException:
+            with contextlib.suppress(DeviceStoppedError):
+                for h in hs:
+                    pool.free(device, h)
+            raise
+        return hs
+
+    # -- capacity-bounded residency: LRU spill + transparent refetch ----------
+    def _spill_locked(self, device: int, ent: PresentEntry, tag: str) -> None:
+        """Free ``ent``'s device buffers but keep the logical entry (spill).
+
+        Caller holds ``env_locks[device]``.  Device-ahead content — and
+        ``alloc_resident`` buffers whose host view is still a placeholder —
+        is fetched to the host *before* the buffers are freed, so a spill
+        never loses a value.  The fetch is an XFER_FROM on the device's
+        stream, ordered after the entry's in-flight writers.  Otherwise the
+        host view is copied on the host (``spill_leaves``): the caller's
+        tensors may change in place while the entry is spilled.
+        """
+        pool = self.pool
+        table = pool.present[device]
+        if ent.device_ahead or any(l is None for l in ent.host_leaves):
+            fetched = [pool.transfer_from(device, h,
+                                          tag=f"{tag}:reconcile:{ent.name}")
+                       for h in ent.handles]
+            ent.host_leaves = list(fetched)
+            ent.host_versions = [host_version(l) for l in fetched]
+            ent.spill_leaves = list(fetched)
+            ent.device_ahead = False
+            table.bytes_reconciled += ent.nbytes()
+        else:
+            ent.spill_leaves = [as_host_tensor(l).clone()
+                                for l in ent.host_leaves]
+        for h in ent.handles:
+            pool.free(device, h)
+        ent.handles = []
+        ent.write_futs = []
+        ent.debit = 0
+        ent.spilled = True
+        table.evictions += 1
+
+    def _reserve_capacity(self, device: int, nbytes: int, *,
+                          tag: str = "capacity",
+                          protect: Sequence[str] = ()) -> None:
+        """Make room for ``nbytes`` more resident bytes; caller holds env lock.
+
+        Evicts least-recently-used entries (not pinned, not in ``protect``,
+        not retained by an in-flight region) until the budget fits.  Soft
+        cap: when nothing is evictable the residency goes over budget rather
+        than failing — capacity pressure changes traffic, never a result.
+        """
+        table = self.pool.present[device]
+        if table.capacity_bytes is None:
+            return
+        while table.used_bytes() + nbytes > table.capacity_bytes:
+            victim = table.lru_victim(protect)
+            if victim is None:
+                break
+            self._spill_locked(device, victim, tag)
+
+    def _refetch_locked(self, device: int, ent: PresentEntry, tag: str) -> None:
+        """Re-materialize a spilled entry from its host view: ALLOC and an
+        XFER_TO per leaf on the device's stream, possibly evicting another
+        entry first.  Caller holds ``env_locks[device]``."""
+        pool = self.pool
+        table = pool.present[device]
+        self._reserve_capacity(device, ent.nbytes(), tag=tag,
+                               protect=(ent.name,))
+        hs = self._alloc_specs(device, ent.specs, f"{tag}:refetch:{ent.name}")
+        ent.handles = hs
+        ent.write_futs = [pool.transfer_to(device, h, leaf,
+                                           tag=f"{tag}:refetch:{ent.name}")
+                          for h, leaf in zip(hs, ent.spill_leaves)]
+        ent.spill_leaves = None
+        ent.spilled = False
+        ent.version += 1
+        ent.debit = ent.nbytes()   # the refetch re-paid the entry's transfer
+        table.refetches += 1
+        table.bytes_refetched += ent.nbytes()
+        table.touch(ent)
+
+    def _revive(self, device: int, ent: PresentEntry, leaves: List[Any],
+                treedef: Any, tag: str) -> None:
+        """Refresh a *spilled* entry with a (possibly new) host value."""
+        if not same_treedef(ent.treedef, treedef) or len(ent.host_leaves) != len(leaves):
+            raise ValueError(
+                f"resident buffer {ent.name!r} structure changed; "
+                f"exit_data it first")
+        for i, leaf in enumerate(leaves):
+            v = as_host_tensor(leaf)
+            if TensorSpec(tuple(v.shape), v.dtype) != ent.specs[i]:
+                raise ValueError(
+                    f"resident buffer {ent.name!r} leaf {i} changed "
+                    f"shape/dtype {ent.specs[i]} -> {tuple(v.shape)}/{v.dtype}; "
+                    f"exit_data it first")
+        ent.host_leaves = list(leaves)
+        ent.host_versions = [host_version(l) for l in leaves]
+        ent.spill_leaves = list(leaves)    # the new host value is what goes
+        self._refetch_locked(device, ent, tag)
+
+    def _maybe_revive_value(self, device: int, name: str, leaves: List[Any],
+                            treedef: Any, tag: str) -> None:
+        """Refetch a spilled entry that would value-match ``leaves``.
+
+        Caller holds ``env_locks[device]``.  Without this a spilled entry
+        would miss and go stale relative to the uncapped run.  A leaf
+        matches only if :func:`~.mediary.leaf_unchanged` (identity *and* the
+        same ``_version``): a tensor updated in place after the spill is
+        re-sent by the region, not revived stale.
+        """
+        ent = self.pool.present[device].get(name)
+        if ent is None or not ent.spilled or ent.device_ahead:
+            return
+        if (same_treedef(ent.treedef, treedef)
+                and len(ent.host_leaves) == len(leaves)
+                and all(leaf_unchanged(a, v, b) for a, v, b in
+                        zip(ent.host_leaves, ent.host_versions, leaves))):
+            self._refetch_locked(device, ent, tag)
+
+    def _maybe_revive_specs(self, device: int, name: str,
+                            specs: Sequence[TensorSpec],
+                            treedef: Any, tag: str) -> None:
+        """Refetch a spilled entry that would spec-match (output reuse),
+        content included: a kernel that reads its output's prior value
+        sees it as it would without the cap.  Caller holds the env lock."""
+        ent = self.pool.present[device].get(name)
+        if ent is None or not ent.spilled:
+            return
+        if (same_treedef(ent.treedef, treedef)
+                and len(ent.specs) == len(specs)
+                and all(a == b for a, b in zip(ent.specs, specs))):
+            self._refetch_locked(device, ent, tag)
+
+    def pin_resident(self, device: int, *names: str, pinned: bool = True) -> None:
+        """Exempt resident entries from capacity eviction (or re-admit them)."""
+        with self.pool.env_locks[device]:
+            for name in names:
+                ent = self.pool.present[device].get(name)
+                if ent is None:
+                    raise KeyError(f"{name!r} is not resident on device {device}")
+                ent.pinned = pinned
+
     def exit_data(self, device: int, *names: str) -> None:
         """``target exit data``: drop one reference; free at zero."""
         pool = self.pool
@@ -320,6 +483,12 @@ class TargetExecutor:
             ent = pool.present[device].get(name)
             if ent is None:
                 raise KeyError(f"{name!r} is not resident on device {device}")
+            if ent.spilled:
+                # the device copy was evicted after reconciliation: the host
+                # view IS the value — no device traffic, entry stays spilled
+                leaves = [l.clone() for l in ent.spill_leaves]
+                return (leaves[0] if ent.treedef is None
+                        else _tree.unflatten(ent.treedef, leaves))
             ent.refcount += 1          # hold: a concurrent exit_data must not
                                        # free the handles mid-fetch
             handles, treedef = list(ent.handles), ent.treedef
@@ -358,8 +527,9 @@ class TargetExecutor:
         with pool.env_locks[device]:
             if pool.present[device].get(name) is not None:
                 raise KeyError(f"{name!r} is already resident on device {device}")
-            hs = [pool.alloc(device, s.shape, s.dtype, tag=f"{tag}:{name}")
-                  for s in specs]
+            self._reserve_capacity(device, sum(s.nbytes for s in specs),
+                                   tag=tag)
+            hs = self._alloc_specs(device, specs, f"{tag}:{name}")
             pool.present[device].add(PresentEntry(
                 name=name, handles=hs, treedef=treedef,
                 host_leaves=[None] * len(hs), specs=specs,
@@ -400,6 +570,10 @@ class TargetExecutor:
                 raise KeyError(f"{name!r} is not resident on device {src}")
             sent.refcount += 1         # hold: a concurrent exit_data must not
                                        # free the source handles mid-copy
+            # a spilled source holds no device bytes; its reconciled host
+            # view fulfills dst straight from the host (one funnel send)
+            src_spilled = sent.spilled
+            spill_leaves = list(sent.spill_leaves or ())
             src_handles = list(sent.handles)
             snap = sent.peer_clone(src_handles, [])
             specs, treedef = list(snap.specs), snap.treedef
@@ -413,21 +587,34 @@ class TargetExecutor:
                             f"resident buffer {name!r} structure differs "
                             f"between devices {src} and {dst}; exit_data the "
                             f"stale one first")
+                    if dent.spilled:
+                        # about to be overwritten whole: fresh buffers, no
+                        # stale-content refetch
+                        self._reserve_capacity(dst, snap.nbytes(), tag=tag,
+                                               protect=(name,))
+                        dent.handles = self._alloc_specs(dst, specs,
+                                                         f"{tag}:{name}")
+                        dent.spilled = False
                     dst_handles = list(dent.handles)
                 else:
-                    dst_handles = [pool.alloc(dst, s.shape, s.dtype,
-                                              tag=f"{tag}:{name}")
-                                   for s in specs]
-                wires: List[Any] = [None] * len(specs)
-                if compress_wire:
-                    from .compression import int8_wire_nbytes
-                    block = getattr(getattr(transport, "topology", None),
-                                    "block", 256)
-                    wires = [int8_wire_nbytes(math.prod(s.shape), block)
-                             for s in specs]
-                futs = [transport.sendrecv(pool, src, sh, dst, dh,
-                                           nbytes=w, tag=f"{tag}:{name}")
-                        for sh, dh, w in zip(src_handles, dst_handles, wires)]
+                    self._reserve_capacity(dst, snap.nbytes(), tag=tag,
+                                           protect=(name,))
+                    dst_handles = self._alloc_specs(dst, specs, f"{tag}:{name}")
+                if src_spilled:
+                    futs = [pool.transfer_to(dst, dh, leaf, tag=f"{tag}:{name}")
+                            for dh, leaf in zip(dst_handles, spill_leaves)]
+                else:
+                    wires: List[Any] = [None] * len(specs)
+                    if compress_wire:
+                        from .compression import int8_wire_nbytes
+                        block = getattr(getattr(transport, "topology", None),
+                                        "block", 256)
+                        wires = [int8_wire_nbytes(math.prod(s.shape), block)
+                                 for s in specs]
+                    futs = [transport.sendrecv(pool, src, sh, dst, dh,
+                                               nbytes=w, tag=f"{tag}:{name}")
+                            for sh, dh, w in zip(src_handles, dst_handles,
+                                                 wires)]
                 if dent is None:
                     pool.present[dst].add(snap.peer_clone(dst_handles, futs))
                 else:
@@ -437,6 +624,7 @@ class TargetExecutor:
                     dent.device_ahead = snap.device_ahead
                     dent.write_futs = futs
                     dent.version += 1
+                    pool.present[dst].touch(dent)
         finally:
             self.exit_data(src, name)  # release the hold taken above
 
@@ -480,7 +668,12 @@ class TargetExecutor:
                         raise KeyError(
                             f"map(present) name {rname!r} is not resident on "
                             f"device {device}; enter_data/ensure_resident it first")
+                    if ent.spilled:
+                        # a present binding REQUIRES residency: refetch the
+                        # evicted content before binding handles
+                        self._refetch_locked(device, ent, tag or "present")
                     ent.refcount += 1
+                    pool.present[device].touch(ent)
                     hs = _retain_ticketed(rname, ent)
                     treedef = ent.treedef
                 handles[kwarg] = hs[0] if treedef is None else hs
@@ -493,6 +686,8 @@ class TargetExecutor:
                 ent = None
                 if not any(isinstance(l, Section) for l in leaves):
                     with pool.env_locks[device]:
+                        self._maybe_revive_value(device, name, leaves,
+                                                 treedef, tag or name)
                         ent = pool.present[device].match_value(name, leaves, treedef)
                         if ent is not None:
                             hs = _retain_ticketed(name, ent)
@@ -516,6 +711,8 @@ class TargetExecutor:
                 leaves, treedef = _flatten_map_value(spec)
                 specs = [_as_spec(leaf) for leaf in leaves]
                 with pool.env_locks[device]:
+                    self._maybe_revive_specs(device, name, specs, treedef,
+                                             tag or name)
                     ent = pool.present[device].match_specs(name, specs, treedef)
                     if ent is not None:
                         hs = _retain_ticketed(name, ent)

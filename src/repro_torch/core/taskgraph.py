@@ -10,15 +10,20 @@ Port of ``repro.core.taskgraph`` to the extent the main path needs it:
   ready nodes dispatched as ``nowait`` regions, host-mediated edges (the
   paper's funnel) or device→device edges (``peer=True``), and per-wave
   resident pins (``resident=True``).
-* :class:`RoundRobin` placement, the reference's default.
+* Placement policies: :class:`RoundRobin` (the reference's default),
+  :class:`LocalityAffinity`, :class:`HeftPlacement` (earliest finish time
+  under the cost model, pricing each edge on the cheaper of the host funnel
+  and the peer fabric) and :class:`SloPlacement` (tail-first, with backlogs
+  that persist across graphs and drain in wall-clock time).
 
 Left for later slices, each raising ``NotImplementedError`` naming its
-ROADMAP item: the locality/HEFT/SLO policies (item 10), straggler hedging,
-checkpoints, failure recovery and lineage replay (item 11).
+ROADMAP item: straggler hedging, checkpoints, failure recovery and lineage
+replay (item 11).
 """
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -27,6 +32,7 @@ from .device import DeviceFailure
 from .mediary import TensorSpec
 from .target import (MapSpec, Section, TargetExecutor, TargetFuture, _alias_map,
                      _flatten_map_value)
+from .transport import HostFunnelTransport
 
 
 # ---------------------------------------------------------------------------
@@ -137,18 +143,24 @@ class PlacementContext:
 
     ``home`` maps every already-placed task to its device, ``out_bytes`` to
     its output size; ``load`` counts this wave's placements per device;
-    ``healthy`` lists the placeable devices (None: all of them).
+    ``replicas`` maps a task to every device holding a live copy of its
+    output (the home plus each peer-propagated copy: a repeat edge is
+    free); ``healthy`` lists the placeable devices (None: all of them);
+    ``topology`` is the transport's, when it has one.
     """
 
     pool: Any
     cost: Any
     D: int
+    peer: bool = False
     transport: Any = None
     home: Dict[str, int] = field(default_factory=dict)
     out_bytes: Dict[str, int] = field(default_factory=dict)
     load: Dict[int, int] = field(default_factory=dict)
+    replicas: Dict[str, set] = field(default_factory=dict)
     wave: int = 0
     healthy: Optional[List[int]] = None
+    topology: Any = None
 
     def candidates(self) -> List[int]:
         """The devices a policy may place onto, always non-empty."""
@@ -200,20 +212,229 @@ class RoundRobin(PlacementPolicy):
         return cands[ready_index % len(cands)]
 
 
-#: Policies of the reference that later slices port (ROADMAP item 10).
-_UNPORTED_POLICIES = ("locality", "heft", "slo")
+class LocalityAffinity(PlacementPolicy):
+    """Prefer the device that already holds the node's inputs.
+
+    Scores each device by the bytes of the node's ``reads`` homed there —
+    producer outputs through the runner's replica map, producer-less names
+    through the device present tables — and breaks ties by this wave's
+    queue depth, then lowest index.  With no locality signal it is
+    :class:`RoundRobin`.
+    """
+
+    name = "locality"
+
+    def place(self, ctx: PlacementContext, node: TaskNode,
+              ready_index: int, region_tag: str) -> int:
+        cands = ctx.candidates()
+        if node.device is not None and (ctx.healthy is None
+                                        or node.device in cands):
+            return node.device
+        score = {d: 0 for d in cands}
+        for dep in node.reads:
+            if dep in ctx.replicas:
+                nb = ctx.out_bytes.get(dep, 0) or 1
+                for d in ctx.replicas[dep]:   # home + propagated copies
+                    if d in score:
+                        score[d] += nb
+                continue
+            src = ctx.home.get(dep)
+            if src is not None:
+                if src in score:
+                    score[src] += ctx.out_bytes.get(dep, 0) or 1
+                continue
+            for d in cands:
+                e = ctx.pool.present[d].get(dep)
+                if e is not None and not e.spilled:
+                    score[d] += e.nbytes()
+        best = max(score.values())
+        if best == 0:
+            return cands[ready_index % len(cands)]
+        tied = [d for d in cands if score[d] == best]
+        return min(tied, key=lambda d: (ctx.load.get(d, 0), d))
+
+
+class HeftPlacement(PlacementPolicy):
+    """Earliest-finish-time placement under the recorded cost model.
+
+    Each device carries a modeled ready clock; a node's finish on device
+    ``d`` is ``max(ready[d], latest edge arrival) + est``.  ``est`` comes
+    from ``estimates``: ``"observed"`` (default) is
+    :meth:`CostModel.kernel_time` — the mean of the EXEC seconds recorded so
+    far, else ``default_task_s``; ``"calibrated"`` is the calibration
+    profile's seed (none in the port yet: ``default_task_s``); ``"frozen"``
+    is ``default_task_s`` always (``use_observed=False``).  Each
+    cross-device edge costs the cheaper of the host funnel and the peer
+    fabric — the comparison :meth:`route_edge` answers, so the runner moves
+    each edge over the wire the policy priced.  Every decision is logged
+    through :meth:`CostModel.record_placement`.
+    """
+
+    name = "heft"
+
+    def __init__(self, default_task_s: float = 1e-3,
+                 use_observed: bool = True,
+                 estimates: Optional[str] = None) -> None:
+        self.default_task_s = default_task_s
+        self.use_observed = use_observed
+        if estimates is None:
+            estimates = "observed" if use_observed else "frozen"
+        if estimates not in ("observed", "calibrated", "frozen"):
+            raise ValueError(f"unknown estimates mode {estimates!r}")
+        self.estimates = estimates
+        self._ready: Dict[int, float] = {}
+
+    def begin(self, ctx: PlacementContext) -> None:
+        self._ready = {d: 0.0 for d in range(ctx.D)}
+
+    def _estimate(self, ctx: PlacementContext, kernel: str) -> float:
+        """The compute estimate for one node, per the estimates mode."""
+        if self.estimates == "frozen":
+            return self.default_task_s
+        if self.estimates == "calibrated":
+            profile = getattr(ctx.cost, "profile", None)
+            seed = profile.kernel_seed(kernel) if profile is not None else None
+            return seed if seed is not None else self.default_task_s
+        return ctx.cost.kernel_time(kernel, default=self.default_task_s)
+
+    _FUNNEL = HostFunnelTransport()     # prices the fetch + re-send wire
+
+    def _edge(self, ctx: PlacementContext, src: int, dst: int,
+              nbytes: int) -> Tuple[float, str]:
+        # the funnel price is the transport layer's own model; edge_route
+        # folds in the per-pair topology price and the int8-wire decision
+        funnel = self._FUNNEL.edge_time(ctx.cost, src, dst, nbytes)
+        if ctx.peer and ctx.transport is not None:
+            peer_s, wire = ctx.transport.edge_route(ctx.cost, src, dst,
+                                                    nbytes)
+            if peer_s <= funnel:
+                return peer_s, wire
+        return funnel, "funnel"
+
+    def route_edge(self, ctx: PlacementContext, src: int, dst: int,
+                   nbytes: int) -> str:
+        return self._edge(ctx, src, dst, nbytes)[1]
+
+    def _arrival(self, ctx: PlacementContext, node: TaskNode, d: int) -> float:
+        """When the last of ``node``'s inputs can be on device ``d``."""
+        arrive = 0.0
+        for dep in node.deps:
+            src = ctx.home.get(dep)
+            if src is None or src == d or d in ctx.replicas.get(dep, ()):
+                continue   # already local (home or replica): free edge
+            s, _ = self._edge(ctx, src, d, ctx.out_bytes.get(dep, 0))
+            arrive = max(arrive, s)
+        return arrive
+
+    def _candidates(self, ctx: PlacementContext, node: TaskNode) -> List[int]:
+        cands = ctx.candidates()
+        if node.device is not None and (ctx.healthy is None
+                                        or node.device in cands):
+            return [node.device]
+        return cands
+
+    def place(self, ctx: PlacementContext, node: TaskNode,
+              ready_index: int, region_tag: str) -> int:
+        est = self._estimate(ctx, node.kernel)
+        best, best_t = None, None
+        for d in self._candidates(ctx, node):
+            t = max(self._ready.get(d, 0.0), self._arrival(ctx, node, d)) + est
+            if best_t is None or t < best_t:
+                best, best_t = d, t
+        self._ready[best] = best_t
+        ctx.cost.record_placement(region_tag, best, best_t, policy=self.name)
+        return best
+
+
+class SloPlacement(HeftPlacement):
+    """Tail-latency-aware EFT placement for serving (p99, not makespan).
+
+    Unlike :class:`HeftPlacement`, the per-device backlog (estimated seconds
+    of queued work) persists across graphs and :meth:`begin` drains it by
+    the wall-clock time elapsed since the previous graph.  A candidate's
+    cost is the fleet tail the placement would produce,
+    ``max(tail, finish_d)``; ties break by earliest finish, then by present
+    table fullness (a full table spills on the next admission), then index.
+    A caller may adjust the backlog between ``place`` calls with
+    :meth:`charge` / :meth:`release`.  Edge pricing and routing are HEFT's.
+    """
+
+    name = "slo"
+
+    def __init__(self, default_task_s: float = 1e-3,
+                 use_observed: bool = True,
+                 estimates: Optional[str] = None) -> None:
+        super().__init__(default_task_s, use_observed, estimates)
+        self._backlog: Dict[int, float] = {}
+        self._drained_at: Optional[float] = None
+
+    def begin(self, ctx: PlacementContext) -> None:
+        for d in range(ctx.D):
+            self._backlog.setdefault(d, 0.0)
+        now = time.monotonic()
+        if self._drained_at is not None:
+            dt = now - self._drained_at
+            for d in self._backlog:
+                self._backlog[d] = max(0.0, self._backlog[d] - dt)
+        self._drained_at = now
+
+    def charge(self, device: int, seconds: float) -> None:
+        """Pre-charge known future work (e.g. a sequence's token budget)."""
+        self._backlog[device] = self._backlog.get(device, 0.0) + seconds
+
+    def release(self, device: int, seconds: float) -> None:
+        """Return charged-but-unspent work (retirement, shed, migration)."""
+        self._backlog[device] = max(0.0,
+                                    self._backlog.get(device, 0.0) - seconds)
+
+    def backlog(self, device: int) -> float:
+        return self._backlog.get(device, 0.0)
+
+    def _pressure(self, ctx: PlacementContext, d: int) -> float:
+        """Resident bytes / capacity of device ``d``'s present table (0 when
+        uncapped)."""
+        try:
+            table = ctx.pool.present[d]
+        except (AttributeError, IndexError):
+            return 0.0
+        cap = getattr(table, "capacity_bytes", None)
+        if not cap:
+            return 0.0
+        return table.used_bytes() / cap
+
+    def place(self, ctx: PlacementContext, node: TaskNode,
+              ready_index: int, region_tag: str) -> int:
+        est = self._estimate(ctx, node.kernel)
+        cands = self._candidates(ctx, node)
+        for d in cands:
+            self._backlog.setdefault(d, 0.0)
+        tail = max((self._backlog[d] for d in cands), default=0.0)
+        best, best_key, best_finish = None, None, None
+        for d in cands:
+            finish = max(self._backlog[d], self._arrival(ctx, node, d)) + est
+            key = (max(tail, finish), finish, self._pressure(ctx, d), d)
+            if best_key is None or key < best_key:
+                best, best_key, best_finish = d, key, finish
+        self._backlog[best] = best_finish
+        ctx.cost.record_placement(region_tag, best, best_finish,
+                                  policy=self.name)
+        return best
+
+
+_POLICIES = {"round-robin": RoundRobin, "locality": LocalityAffinity,
+             "heft": HeftPlacement, "slo": SloPlacement}
 
 
 def resolve_policy(policy: Any) -> PlacementPolicy:
     """None | name | class | instance → a ready :class:`PlacementPolicy`."""
-    if policy is None or policy == "round-robin":
+    if policy is None:
         return RoundRobin()
     if isinstance(policy, str):
-        if policy in _UNPORTED_POLICIES:
-            raise NotImplementedError(
-                f"placement policy {policy!r} is not ported yet: ROADMAP item 10")
-        raise ValueError(f"unknown placement policy {policy!r}; "
-                         f"one of {sorted(('round-robin',) + _UNPORTED_POLICIES)}")
+        try:
+            return _POLICIES[policy]()
+        except KeyError:
+            raise ValueError(f"unknown placement policy {policy!r}; "
+                             f"one of {sorted(_POLICIES)}") from None
     if isinstance(policy, type) and issubclass(policy, PlacementPolicy):
         return policy()
     if isinstance(policy, PlacementPolicy):
@@ -279,8 +500,10 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
         # cost model): per-pair edge prices and "peer+int8" routing
         transport = PeerTransport(topology=getattr(pool.cost, "topology", None))
     D = len(pool)
-    ctx = PlacementContext(pool=pool, cost=pool.cost, D=D, transport=transport,
-                           healthy=pool.health.healthy(D))
+    ctx = PlacementContext(pool=pool, cost=pool.cost, D=D, peer=peer,
+                           transport=transport,
+                           healthy=pool.health.healthy(D),
+                           topology=getattr(transport, "topology", None))
     policy.begin(ctx)
     results: Dict[str, Any] = {}
     # peer mode: every (device, entry) this run pinned — producer outputs and
@@ -348,6 +571,7 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                                   tag=f"{region_tag}:edge",
                                   compress_wire=(route == "peer+int8"))
             peer_entries[(dev, entry)] = True
+            ctx.replicas.setdefault(v.task, set()).add(dev)
             pres[k] = entry
         for k, v in {**maps.tofrom, **maps.alloc, **maps.from_}.items():
             if isinstance(v, PeerRef):
@@ -409,6 +633,7 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                         f"device {dev} of {D}")
                 ctx.load[dev] = ctx.load.get(dev, 0) + 1
                 ctx.home[t.name] = dev
+                ctx.replicas.setdefault(t.name, set()).add(dev)
                 maps = t.make_maps({d: results[d] for d in t.deps})
                 if peer:
                     maps = _peer_rewrite(t, dev, maps, region_tag)

@@ -27,8 +27,8 @@ enc-dec cross-KV and the mamba2 states, axis 2 for the hybrid's [G, k, B,
 ...] conv and SSM states.
 The reference's pool mode (the loop lowered onto the TaskGraph over device-
 resident caches) is not ported yet (ROADMAP item 14b): it builds on the
-peer fabric's ``alloc_resident`` / ``propagate_resident`` and needs
-``SloPlacement`` (item 10).
+peer fabric's ``alloc_resident`` / ``propagate_resident`` and on
+``SloPlacement``.
 
 On the card every decode step runs as a captured CUDA graph, the port's
 counterpart of the reference's ``jax.jit(model.decode_step)``: one graph per
@@ -154,8 +154,7 @@ class ServeEngine:
             raise ValueError(f"unknown serve mode {cfg.mode!r}")
         if runtime is not None:
             raise NotImplementedError(
-                "pool-mode serving is not ported yet (ROADMAP.md item 14b): it "
-                "needs SloPlacement (item 10)")
+                "pool-mode serving is not ported yet (ROADMAP.md item 14b)")
         self.device = resolve_device(device)
         where = {str(leaf.device) for leaf in _param_leaves(params)}
         if where != {str(self.device)}:

@@ -910,3 +910,50 @@ def test_dp_fabrics_on_the_card(cuda_device, n):
             float(ref["w"].abs().max()) / 64
         assert torch.equal(steps["direct"][k], steps["host-mediated"][k])
 
+
+
+# ---------------------------------------------------------------------------
+# placement and capacity-bounded present tables on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("policy", ["locality", "heft", "slo"])
+def test_placed_sparselu_keeps_k2_on_cp_async(cuda_device, policy):
+    """A policy-placed peer wavefront equals the serial factorization bit for
+    bit, and every bmod launch stays on the cp_async path."""
+    K, B = 5, 96
+    mat = tbl._matrix(K, B)
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=4, comm_mode="direct"),
+                        table=tbl._make_table(K), device=cuda_device)
+    try:
+        ser = tbl.serial(rt, mat)
+        before = (k2.launches.count, k2.path_launches["cp_async"].count)
+        res = tbl.wavefront(rt, mat, peer=True, policy=policy)
+        launches = k2.launches.count - before[0]
+        assert launches == sum(m * m for m in range(K))
+        assert k2.path_launches["cp_async"].count - before[1] == launches
+        assert all(r["observed_device_ok"] for r in rt.cost.placement_report())
+    finally:
+        rt.shutdown()
+    assert torch.equal(tbl.assemble(res, K), ser)
+
+
+def test_capped_sparselu_equals_uncapped_on_the_card(cuda_device):
+    """A cap of four blocks a device forces spills (device-ahead blocks
+    fetched to the host first) and refetches on the devices' streams; the
+    factorization stays bit for bit the uncapped one."""
+    from repro_torch.core import HeftPlacement
+    K, B = 5, 96
+    mat = tbl._matrix(K, B)
+    got, mem = {}, None
+    for cap in (None, 4 * B * B * 4):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=4, comm_mode="direct",
+                                          device_capacity_bytes=cap),
+                            table=tbl._make_table(K), device=cuda_device)
+        try:
+            got[cap] = tbl.assemble(tbl.wavefront(rt, mat, peer=True, policy=HeftPlacement(
+                default_task_s=5e-6, use_observed=False)), K)
+            mem = rt.memory_report()
+        finally:
+            rt.shutdown()
+    assert sum(m["evictions"] for m in mem.values()) >= 1
+    assert sum(m["refetches"] for m in mem.values()) >= 1
+    assert torch.equal(got[None], got[4 * B * B * 4])

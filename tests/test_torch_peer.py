@@ -153,8 +153,11 @@ def test_dp_step_matches_reference_and_is_bit_identical_across_fabrics(n):
 def test_runtime_options_left_for_later_items_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         _runtime(T, None, n_virtual=2, comm_mode="direct", transport_retries=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        _runtime(T, None, n_virtual=2, device_capacity_bytes=1)
+    rt = _runtime(T, None, n_virtual=2, device_capacity_bytes=1)
+    try:   # capacity (ROADMAP item 10) is ported: each table takes the cap
+        assert [t.capacity_bytes for t in rt.pool.present] == [1, 1]
+    finally:
+        rt.shutdown()
     with pytest.raises(ValueError, match="topology describes"):
         _runtime(T, None, n_virtual=3, topology=T.Topology.two_tier(2, 2))
     rt = _runtime(T, None, n_virtual=2, comm_mode="direct",

@@ -123,16 +123,21 @@ def test_unported_options_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct",
                                          transport_retries=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, device_capacity_bytes=1),
-                         device="cpu")
+    # placement and capacity (ROADMAP item 10) are ported: a capped runtime
+    # reports its budget per device
+    rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, device_capacity_bytes=1),
+                          device="cpu")
+    try:
+        assert [m["capacity_bytes"] for m in rt.memory_report().values()] == [1, 1]
+    finally:
+        rt.shutdown()
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2), table=_table(T),
                           device="cpu")
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
             T.wavefront_offload(rt.ex, [], peer=True, stragglers=object())
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            T.wavefront_offload(rt.ex, [], policy="heft")
+        assert T.wavefront_offload(rt.ex, [], policy="heft") == {}
+        assert isinstance(T.resolve_policy("heft"), T.HeftPlacement)
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
             rt.calibrate()
         with pytest.raises(ValueError):
