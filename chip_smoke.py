@@ -11,13 +11,16 @@ runs, printing one JSON line per phase:
 
 1. the card's name and power limit (``nvidia-smi``), the build (each
    library's own nvcc seconds), ``-Xptxas -v``'s registers and spills per
-   kernel, and the count of HGMMA (``wgmma``) instructions in the two
-   tensor-core libraries, flash attention and grouped matmul (none fails);
+   kernel, the count of HGMMA (``wgmma``) instructions in the
+   tensor-core libraries (none fails), and the instructions of the
+   mandelbrot kernel's loops (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with its time, the plain version's time and, where one
    PyTorch call computes the same function, that call's (``torch.addmm``
    for bmod, ``scaled_dot_product_attention`` for the attention kernels):
-   mandelbrot and bmod, then flash attention (4 sequences x 24 heads over
+   mandelbrot (bit for bit over the whole image and ``K1_RAGGED``'s
+   cases) and bmod,
+   then flash attention (4 sequences x 24 heads over
    8 kv heads, 512 causal rows, d = 128; also a window, a ragged Sq and
    d = 256; its tensor-core path in bf16 over ``K4_SWEEP`` and on a fused
    projection's strided views) and flash decode (32 kv rows x 3 query heads
@@ -27,7 +30,9 @@ runs, printing one JSON line per phase:
    of d = 80, timed beside SDPA too); bmod and flash decode report their
    path and their CTAs (flash decode: its split count), and each check
    call of either is repeated and must give the same bits;
-3. the paper's Listings 1–2 on 8 virtual devices;
+3. the paper's Listings 1–2 on 8 virtual devices, and regions that bind
+   a declare-target global (``install_global``, ``use_globals``) on each
+   of them, equal to the same run on the CPU;
 4. BOTS mandelbrot at the paper's 4600 x 4600 image, max_iter 300:
    ``offload_strips`` on 8 virtual devices against the one-region serial
    run (the images must be equal);
@@ -107,10 +112,11 @@ prefill shapes (zamba2's, mamba2's, a ragged S, two groups).  Phases 4 to 8
 then run a workload once more under ``torch.profiler`` and report the
 card's busy share of that run.
 
-Every kernel's launch count, and K2's, K3's, K4's and K6's counts per path,
-are set to 0 just before a main-path phase and read just after; a kernel of
-the path that did not launch fails the run, and so does a sparselu K2 launch
-off the ``cp_async`` path, a serve K3 launch off the ``split`` path, a bf16
+Every kernel's launch count, and K1's, K2's, K3's, K4's and K6's counts per
+path, are set to 0 just before a main-path phase and read just after; a
+kernel of the path that did not launch fails the run, and so does a
+mandelbrot K1 launch off the ``chunked`` path, a sparselu K2 launch off the
+``cp_async`` path, a serve K3 launch off the ``split`` path, a bf16
 K4 launch off the ``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a
 decode K6 launch off ``small_c``.
 Then it prints the ``{"kernels": [...]}`` line (times, bounds, launches) and,
@@ -135,7 +141,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor cores'.  fp32_unfused is the rate of separately rounded fp32
 # operations, one instruction slot each: half of fp32_flops.  K1 runs at it,
 # because it must not fuse (csrc/mandelbrot.cu: __fmul_rn/__fadd_rn; an FMA
-# rounds once where the reference rounds twice and flips boundary pixels).
+# rounds once where the reference rounds twice and flips boundary pixels),
+# and needs 7 such operations per counted iteration: two squares and z^2 + c
+# (5), with the escape sum tested once a chunk of iterations, not each one.
 PEAKS = {
     "sxm": {"fp32_flops": 67e12, "fp32_unfused": 33.5e12, "bf16_flops": 989e12,
             "hbm_Bps": 3.35e12},
@@ -144,6 +152,12 @@ PEAKS = {
 }
 
 MANDEL_SIZE, MANDEL_ITER, MANDEL_DEVICES = 4600, 300, 8
+# K1's ragged cases, against the plain version bit for bit: rows (strips
+# that start mid-image; the second is the band around cy = 0 of the main
+# image, where c passes -2 on its left edge), width (not a multiple of 32)
+# and the image's height; max_iter 0, 1, around the chunk and off 300
+K1_RAGGED = (((21, 58), 97, 80), ((2290, 2311), 4600, 4600))
+K1_RAGGED_ITERS = (0, 1, 299, 301)      # and CHUNK - 1, CHUNK, CHUNK + 1
 LU_K, LU_B, LU_DEVICES = 16, 128, 4
 # the placement phase: each device's present table capped at this many
 # 128 x 128 fp32 blocks (HEFT comm-bound packs the whole factorization, 1,496
@@ -342,11 +356,28 @@ def phase_card_and_build():
              for name in ("flash_attention", "grouped_matmul", "ssd_scan")}
     emit({"phase": "build", "card": card, "seconds": seconds,
           "library_seconds": {name: r["seconds"] for name, r in report.items()},
-          "hgmma_instructions": hgmma,
+          "hgmma_instructions": hgmma, "k1_sass_loops": _k1_sass_loops(_build),
           "ptxas": {name: _ptxas_by_kernel(_build, r["log"]) for name, r in report.items()}})
     if not all(hgmma.values()):
         fail(f"a tensor-core library holds no HGMMA instruction: {hgmma}")
     return card
+
+
+def _k1_sass_loops(_build) -> dict:
+    """K1's loops in its SASS: each backward branch's instructions and
+    FMUL / FADD / FSETP / BRA counts.  ``chunk`` is the loop with the most
+    FMULs (7 operations an iteration, the escape sum once a chunk, per
+    ``chunk_per_iteration``); ``exact`` is the per-iteration loop, one test
+    an iteration, the kernel's whole loop before it was chunked (now the
+    ``max_iter mod CHUNK`` iterations and the replay of an escaped chunk)."""
+    from repro_torch.kernels.mandelbrot.mandelbrot import CHUNK
+    keep = ("instructions", "FMUL", "FADD", "FSETP", "BRA")
+    loops = [{k: loop.get(k, 0) for k in keep} for loop in _build.sass_loops(
+        _build.sass(_build.lib_path("mandelbrot")), "mandelbrot_rows_kernel")]
+    chunk = max(loops, key=lambda loop: loop["FMUL"], default=None)
+    return {"chunk": chunk, "chunk_iterations": CHUNK,
+            "chunk_per_iteration": chunk and {k: chunk[k] / CHUNK for k in keep},
+            "exact": [loop for loop in loops if loop is not chunk]}
 
 
 def _ptxas_by_kernel(_build, log: str) -> dict:
@@ -391,8 +422,7 @@ def phase_kernels(torch, peaks):
     from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
 
     dev = torch.device("cuda", 0)
-    k1mod.launches.reset()
-    _reset_counts(k2mod)
+    _reset_counts(k1mod, k2mod)
     n = MANDEL_SIZE
     rows = torch.arange(n, dtype=torch.int32, device=dev)
     img = mandelbrot_rows_cuda(rows, n, n, MANDEL_ITER)
@@ -405,18 +435,28 @@ def phase_kernels(torch, peaks):
                         for s, ln in strip_partition(n, MANDEL_DEVICES)])
     torch.cuda.synchronize()
     strips_equal = bool(torch.equal(strips, img))
+    ragged = _k1_ragged(torch, dev, k1mod, mandelbrot_rows_cuda, mandelbrot_rows_ref)
     k1_check_launches = k1mod.launches.count
+    k1_check_paths = _path_counts(k1mod)
     counts = float(img.to(torch.int64).sum())
-    # 8 separately rounded fp32 operations per escape iteration
-    k1_bound, k1_by = bound_ms(peaks, 4 * n + 4 * n * n, 8 * counts, "fp32_unfused")
+    # 7 separately rounded fp32 operations per counted iteration: the escape
+    # sum zx^2 + zy^2 is only needed for the test, which runs once a chunk,
+    # so it is amortised and 7 (two squares, z^2 + c) is the least work
+    k1_bound, k1_by = bound_ms(peaks, 4 * n + 4 * n * n, 7 * counts, "fp32_unfused")
     k1 = {"name": "mandelbrot_rows", "shape": [n, n], "max_iter": MANDEL_ITER,
-          "mismatch_share": mismatch, "tolerance": 0.005,
+          "path": "chunked", "chunk": k1mod.CHUNK,
+          "mismatch_share": mismatch, "tolerance": 0,
           "max_abs_err": k1_err, "strips_tile_image": strips_equal,
+          "ragged": ragged,
           "sum_counts": counts, "check_launches": k1_check_launches,
+          "check_path_launches": k1_check_paths,
           "ms": time_ms(torch, lambda: mandelbrot_rows_cuda(rows, n, n, MANDEL_ITER), 20),
           "plain_ms": time_ms(torch, lambda: mandelbrot_rows_ref(rows, n, n, MANDEL_ITER), 2),
           "library_ms": None, "bound_ms": k1_bound, "bound_by": k1_by}
-    k1["pass"] = mismatch < 0.005 and strips_equal
+    # exact: the counts are integers computed by the same fp32 operations
+    k1["pass"] = (mismatch == 0 and k1_err == 0 and strips_equal
+                  and not ragged["failed"]
+                  and k1_check_paths == {"chunked": k1_check_launches})
     emit({"phase": "kernel_check", **k1})
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -458,6 +498,25 @@ def phase_kernels(torch, peaks):
     if not k2["pass"]:
         fail(f"bmod kernel disagrees with its plain version: {cases}")
     return k1, k2
+
+
+def _k1_ragged(torch, dev, k1mod, kernel, ref) -> dict:
+    """``K1_RAGGED`` x (``K1_RAGGED_ITERS`` and the chunk's neighbours)
+    against the plain version bit for bit, each run twice for the same
+    bits."""
+    k = k1mod.CHUNK
+    failed, n_cases = [], 0
+    for (r0, r1), width, total in K1_RAGGED:
+        rows = torch.arange(r0, r1, dtype=torch.int32, device=dev)
+        for max_iter in sorted({*K1_RAGGED_ITERS, k - 1, k, k + 1}):
+            plain = ref(rows, width, total, max_iter)
+            out = kernel(rows, width, total, max_iter)
+            again = kernel(rows, width, total, max_iter)
+            n_cases += 1
+            if not (torch.equal(out, plain) and torch.equal(out, again)):
+                failed.append({"rows": [r0, r1], "width": width, "max_iter": max_iter,
+                               "mismatches": int((out != plain).sum())})
+    return {"cases": n_cases, "failed": failed}
 
 
 def _kernel_layout(q, k, v):
@@ -1096,6 +1155,33 @@ def phase_listings(torch):
         rt.shutdown()
     if not ok:
         fail("Listings 1-2 / offload_strips results differ from a + b")
+    # declare-target globals: ``a`` installed on every device after a buffer
+    # pinned on device 0 (its handle shifts there), bound by a region on each
+    # device, then re-installed; the card's run against the CPU's
+    runs = {}
+    for device in ("cuda", "cpu"):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=8), table=table, device=device)
+        try:
+            rt.ex.ensure_resident(0, keep=b)
+            outs = []
+            for g in (a, 2 * a):
+                rt.pool.install_global("a", g)
+                outs += [rt.target("add_arrays", d, MapSpec(
+                    to={"b": b}, from_={"c": TensorSpec((size,), torch.float32)},
+                    use_globals=("a",)))["c"].cpu() for d in range(len(rt.pool))]
+            s = rt.cost.summary()
+            runs[device] = (outs, dict(rt.pool.globals["a"]), s["bytes_to"], s["bytes_from"])
+        finally:
+            rt.shutdown()
+    card, host = runs["cuda"], runs["cpu"]
+    ok = (all(torch.equal(x, y) for x, y in zip(card[0], host[0])) and card[1:] == host[1:]
+          and all(torch.equal(x, a + b) for x in card[0][:8])
+          and all(torch.equal(x, 2 * a + b) for x in card[0][8:]))
+    emit({"phase": "declare_target_globals", "devices": 8, "regions": len(card[0]),
+          "handles": card[1], "bytes_to": card[2], "bytes_from": card[3],
+          "equal_cpu": ok})
+    if not ok:
+        fail("a region using a declare-target global differs from the CPU run")
 
 
 def phase_mandelbrot(torch):
@@ -1107,11 +1193,12 @@ def phase_mandelbrot(torch):
                         table=bm._make_table(n, n, MANDEL_ITER), device="cuda")
     try:
         rows = bm.all_rows(n)
-        k1.launches.reset()
+        _reset_counts(k1)
         t0 = time.perf_counter()
         img = bm.strips(rt, rows, n, nowait=True)
         wall = time.perf_counter() - t0
         launches = k1.launches.count
+        paths = _path_counts(k1)
         s = rt.cost.summary()
         ser = bm.serial(rt, rows, n)
         busy = device_busy(torch, lambda: bm.strips(rt, rows, n, nowait=True))
@@ -1126,13 +1213,14 @@ def phase_mandelbrot(torch):
           "modeled_makespan_overlap_s": s["makespan_overlap_s"],
           "compute_s": s["compute_s"], "bytes_to": s["bytes_to"],
           "bytes_from": s["bytes_from"], "kernel_launches": launches,
+          "kernel_path_launches": paths,
           "strips_equal_serial": equal, "sane": sane, "profiled": busy})
-    if launches != MANDEL_DEVICES:
-        fail(f"mandelbrot kernel launched {launches} times, expected "
-             f"{MANDEL_DEVICES} (one per strip)")
+    if launches != MANDEL_DEVICES or paths != {"chunked": launches}:
+        fail(f"mandelbrot kernel launched {launches} times ({paths}), expected "
+             f"{MANDEL_DEVICES} (one per strip), all chunked")
     if not (equal and sane):
         fail("mandelbrot strips differ from the serial image")
-    return launches, img, s
+    return launches, paths, img, s
 
 
 def _sparselu_once(torch, K: int, B: int, n_devices: int, fabric: str = "host-mediated"):
@@ -1320,34 +1408,37 @@ def phase_placement(torch, direct_row: dict, mandel_img, mandel_s: dict):
         fail(f"capped sparselu: {capped['evictions']} evictions, "
              f"{capped['refetches']} refetches; expected at least one of each")
     n = MANDEL_SIZE
-    k1_launches = 0
+    k1_launches, k1_paths = 0, {}
     for policy in ("locality", "heft-comm"):
         rt = ClusterRuntime(RuntimeConfig(n_virtual=MANDEL_DEVICES),
                             table=bm._make_table(n, n, MANDEL_ITER), device="cuda")
         try:
-            k1.launches.reset()
+            _reset_counts(k1)
             t0 = time.perf_counter()
             img = bm.strips(rt, bm.all_rows(n), n, nowait=True,
                             policy=_placement_policy(policy))
             wall = time.perf_counter() - t0
             launches = k1.launches.count
+            paths = _path_counts(k1)
             s = rt.cost.summary()
             used = len({c.device for c in rt.cost.compute})
         finally:
             rt.shutdown()
         k1_launches += launches
+        k1_paths = {p: k1_paths.get(p, 0) + c for p, c in paths.items()}
         equal = bool(torch.equal(img, mandel_img))
         emit({"phase": "placement_mandelbrot", "policy": policy, "size": n,
               "devices": MANDEL_DEVICES, "devices_used": used, "wall_s": wall,
               "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
-              "kernel_launches": launches, "image_equal_round_robin": equal})
-        if not equal or launches != MANDEL_DEVICES:
+              "kernel_launches": launches, "kernel_path_launches": paths,
+              "image_equal_round_robin": equal})
+        if not equal or launches != MANDEL_DEVICES or paths != {"chunked": launches}:
             fail(f"placement mandelbrot {policy}: image equal {equal}, "
-                 f"{launches} K1 launches")
+                 f"{launches} K1 launches ({paths})")
         if (s["bytes_to"], s["bytes_from"]) != (mandel_s["bytes_to"], mandel_s["bytes_from"]):
             fail(f"placement mandelbrot {policy}: bytes {s['bytes_to']}/{s['bytes_from']} "
                  f"!= round-robin {mandel_s['bytes_to']}/{mandel_s['bytes_from']}")
-    return k1_launches, [*rows.values(), capped]
+    return k1_launches, k1_paths, [*rows.values(), capped]
 
 
 def phase_dp_fabric(torch, peaks):
@@ -2175,14 +2266,17 @@ def main() -> int:
     k6 = phase_gmm_kernel(torch, peaks)
     k5 = phase_ssd_kernel(torch, peaks)
     phase_listings(torch)
-    k1_launches, mandel_img, mandel_s = phase_mandelbrot(torch)
+    k1_launches, k1_paths, mandel_img, mandel_s = phase_mandelbrot(torch)
     lu_rows = [_sparselu_once(torch, LU_K, LU_B, LU_DEVICES)]
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
     lu_rows += phase_sparselu_fabric(torch, lu_rows[0])
     kq8, kq8_launches = phase_dp_fabric(torch, peaks)
-    placed_k1, placed_rows = phase_placement(torch, lu_rows[1], mandel_img, mandel_s)
+    placed_k1, placed_paths, placed_rows = phase_placement(torch, lu_rows[1], mandel_img,
+                                                           mandel_s)
     del mandel_img
     k1_launches += placed_k1
+    k1_paths = {p: k1_paths.get(p, 0) + placed_paths.get(p, 0)
+                for p in {*k1_paths, *placed_paths}}
     lu_rows += placed_rows
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
@@ -2206,7 +2300,7 @@ def main() -> int:
     rows = [
         {**k1, "route": "cuda", "source": "src/repro_torch/csrc/mandelbrot.cu",
          "replaces": "src/repro/kernels/mandelbrot/mandelbrot.py:18",
-         "launches": k1_launches},
+         "launches": k1_launches, "path_launches": k1_paths},
         {**k2, "route": "cuda", "source": "src/repro_torch/csrc/block_lu.cu",
          "replaces": "src/repro/kernels/block_lu/block_lu.py:21",
          "launches": k2_launches, "path_launches": k2_paths},

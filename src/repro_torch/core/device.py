@@ -22,8 +22,11 @@ into a buffer of its own on its own stream, so no device's slot ever aliases
 another device's, and the bytes are counted as peer traffic, never against
 the host funnel.
 
+Declare-target globals (:meth:`DevicePool.install_global`) live on every
+device for the pool's lifetime, not a region's.
+
 Left for later slices: elastic membership and command deadlines (ROADMAP
-item 11), declare-target globals.
+item 11).
 """
 from __future__ import annotations
 
@@ -366,6 +369,12 @@ class DevicePool:
             else capacity_bytes)) for d in self.devices]
         self.env_locks = [threading.RLock() for _ in self.devices]
         self.trace: List[Command] = []
+        # name -> {device: handle}; first-fit may place a global at different
+        # slots across devices when other buffers are already pinned on some
+        self.globals: Dict[str, Dict[int, int]] = {}
+        # name -> host value, kept so that a device joining later can replay
+        # the install sequence
+        self._global_values: Dict[str, torch.Tensor] = {}
         self._trace_lock = threading.Lock()
         self._queues: List["queue.SimpleQueue[Optional[_WorkItem]]"] = [
             queue.SimpleQueue() for _ in self.devices]
@@ -762,6 +771,33 @@ class DevicePool:
             fut), deps)
         fut.add_done_callback(lambda _f, i=i: self._queues[i].put(None))
         return fut
+
+    # -- declare-target globals (paper §4.2 last ¶) ---------------------------
+    def install_global(self, name: str, value: Any, tag: str = "") -> int:
+        """Install a global on EVERY device, before user code.
+
+        Paper: "All nodes place the addresses of global variables in their
+        arrays at the beginning of the execution and in the same order."
+        When installation really does precede all user allocations the
+        first-fit handles agree across devices; a buffer already pinned on
+        one device (``ensure_resident``) shifts that device's slot, so the
+        handle is tracked per device.  Re-installing a name frees the old
+        handles first.  Returns device 0's handle.  The one-shot broadcast
+        is recorded in the cost model.  The value is copied here: a later
+        in-place change of the caller's tensor reaches no device.
+        """
+        value = as_host_tensor(value).detach().clone()
+        if name in self.globals:            # idempotent re-install (re-runs)
+            for i, h in self.globals.pop(name).items():
+                self.free(i, h)
+        handles: Dict[int, int] = {}
+        for i in range(len(self.devices)):
+            h = self.alloc(i, value.shape, value.dtype, tag=f"global:{name}")
+            self.transfer_to(i, h, value, tag=tag or f"global:{name}")
+            handles[i] = h
+        self.globals[name] = handles
+        self._global_values[name] = value
+        return handles[0]
 
     def stop_all(self) -> None:
         futs = [self._stop_device(d.index) for d in self.devices]

@@ -39,8 +39,11 @@ least-recently-used unpinned, unretained entry — its device-ahead content is
 fetched to the host first, its buffers freed, its logical entry kept — and
 the next binding refetches it.  A spill changes traffic, never a result.
 
-Left for later slices: self-healing of failed writers (ROADMAP item 11),
-declare-target globals.
+``MapSpec.use_globals`` binds declare-target globals
+(:meth:`~.device.DevicePool.install_global`), which no region allocates,
+sends or frees.
+
+Left for later slices: self-healing of failed writers (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -89,12 +92,17 @@ class MapSpec:
     tofrom: Dict[str, Any] = field(default_factory=dict)
     alloc: Dict[str, Any] = field(default_factory=dict)
     firstprivate: Dict[str, Any] = field(default_factory=dict)
-    use_globals: Tuple[str, ...] = ()                       # declare-target vars
+    use_globals: Tuple[str, ...] = ()    # declare-target vars, no transfer
     # OpenMP's ``present`` modifier: names that MUST already be resident;
     # a tuple of names or a dict {kernel kwarg: entry name}
     present: Any = ()
     # outputs written back on-device into a present entry, not fetched
     device_out: Any = ()
+
+    def all_names(self) -> List[str]:
+        return (list(self.to) + list(self.from_) + list(self.tofrom)
+                + list(self.alloc) + list(self.use_globals)
+                + list(_alias_map(self.present)) + list(_alias_map(self.device_out)))
 
 
 class TargetFuture:
@@ -632,9 +640,6 @@ class TargetExecutor:
     def _run(self, kernel: str, device: int, maps: MapSpec,
              tag: str) -> Dict[str, torch.Tensor]:
         pool = self.pool
-        if maps.use_globals:
-            raise NotImplementedError(
-                "declare-target globals (use_globals) are not ported yet")
         handles: Dict[str, Any] = {}   # name -> handle | [handles] (pytree)
         trees: Dict[str, Any] = {}     # name -> treedef for pytree maps
         owned: List[int] = []    # region-lifetime handles, freed at region end
@@ -725,6 +730,10 @@ class TargetExecutor:
                 handles[name] = hs[0] if treedef is None else hs
                 if treedef is not None:
                     trees[name] = treedef
+            # declare-target globals bind their device-lifetime handles: no
+            # transfer, and never freed at region end
+            for name in maps.use_globals:
+                handles[name] = pool.globals[name][device]
 
             # 2) EXEC — the kernel sees device-resident buffers as kwargs and
             #    returns replacements for from_/tofrom/device_out names.

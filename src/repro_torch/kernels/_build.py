@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -152,13 +153,69 @@ def build(names: Optional[Iterable[str]] = None, *, force: bool = False,
     return report
 
 
+def sass(path: Path) -> str:
+    """``cuobjdump -sass`` of a built library."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def sass_count(name: str, opcode: str = "HGMMA") -> int:
     """How many ``opcode`` instructions the built ``lib<name>`` holds
     (``cuobjdump -sass``; HGMMA is wgmma on the tensor cores)."""
-    tool = Path(nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib_path(name))], capture_output=True,
-                          text=True, check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    return sum(opcode in line for line in sass(lib_path(name)).splitlines())
+
+
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRANCH = re.compile(r"\bBRA\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))")
+
+
+def sass_loops(text: str, function: str) -> list:
+    """The loops of the first function in ``text`` (``cuobjdump -sass``
+    output) whose mangled name contains ``function``: one dict per backward
+    branch (a branch to itself excepted), in address order, with the number of instructions from the
+    branch's target to the branch itself (``"instructions"``) and that
+    range's count per opcode (``FMUL``, ``FADD``, ``FSETP``, ...; modifiers
+    dropped)."""
+    body, labels, pending, inside = [], {}, [], False
+    for line in text.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            if inside:
+                break
+            inside = function in m.group(1)
+            continue
+        if not inside:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSTR.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            body.append((addr, m.group(2)))
+    loops = []
+    for addr, ins in body:
+        m = _SASS_BRANCH.search(ins)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        # a branch to itself is the padding after a function's last EXIT
+        if target is None or target >= addr:
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0]
+               for a, i in body if target <= a <= addr]
+        loop = {"start": target, "end": addr, "instructions": len(ops)}
+        for op in sorted(set(ops)):
+            loop[op] = ops.count(op)
+        loops.append(loop)
+    return loops
 
 
 def library(name: str) -> ctypes.CDLL:

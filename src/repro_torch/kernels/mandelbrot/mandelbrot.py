@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/mandelbrot/mandelbrot.py::_mandel_kernel``.  The
 kernel takes a device tensor of global row ids, so one build serves every
-strip; see the source for its bound and design.
+strip; see the source for its bound and design (chunked escape iterations
+with an exact replay of the chunk that escaped).
 """
 from __future__ import annotations
 
@@ -15,19 +16,29 @@ import torch
 from .._build import LaunchCounter, check, library
 from .ref import XMAX, XMIN, YMAX, YMIN
 
-#: launches of the CUDA kernel (a count kept by this wrapper only)
+#: iterations between escape tests: the source's kChunk
+CHUNK = 16
+#: the kernel's one path: chunked escape iterations (the per-iteration loop
+#: runs the max_iter mod CHUNK iterations first and replays an escaped chunk)
+PATHS = ("chunked",)
+
+#: launches of the CUDA kernel, and of each path (counts kept by this wrapper only)
 launches = LaunchCounter()
+path_launches = {p: LaunchCounter() for p in PATHS}
 
 _MAX_GRID_Y = 65535
 _BLOCK_ROWS = 8
+
+#: ``mandelbrot_rows``' C argument types
+ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = library("mandelbrot").mandelbrot_rows
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -61,4 +72,5 @@ def mandelbrot_rows_cuda(rows: torch.Tensor, width: int, total_height: int,
                  max_iter, stream)
     check(code, "mandelbrot_rows")
     launches.add()
+    path_launches["chunked"].add()
     return out

@@ -43,7 +43,8 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.grouped_matmul import grouped_matmul as k6
 from repro_torch.kernels.grouped_matmul.ops import expert_ffn_matmul
 from repro_torch.kernels.grouped_matmul.ref import grouped_matmul_ref
-from repro_torch.core import ClusterRuntime, DevicePool, KernelTable, RuntimeConfig
+from repro_torch.core import (ClusterRuntime, DevicePool, KernelTable, MapSpec,
+                               RuntimeConfig, TargetExecutor, TensorSpec)
 from repro_torch.kernels.mandelbrot import mandelbrot as k1
 from repro_torch.kernels.mandelbrot.ops import mandelbrot_rows
 from repro_torch.kernels.mandelbrot.ref import mandelbrot_rows_ref
@@ -79,6 +80,67 @@ def test_mandelbrot_cuda_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert k1.launches.count == before + 1
     assert torch.equal(out, mandelbrot_rows_ref(rows, 257, 320, 120))
+
+
+@pytest.mark.parametrize("rows,width,total", [(range(21, 58), 97, 80),
+                                              (range(2290, 2311), 4600, 4600),
+                                              (range(517, 600), 1000, 1200)])
+def test_mandelbrot_cuda_chunked_ragged_bit_for_bit(cuda_device, rows, width, total):
+    """Against the plain version, bit for bit: max_iter 0, 1, around the
+    chunk and off 300; widths not a multiple of 32; strips that start
+    mid-image, one of them the band around cy = 0 of the main path's
+    4600 x 4600 image (c near -2 on its left edge).  Every launch is on the
+    chunked path, and a second call gives the same bits."""
+    k = k1.CHUNK
+    rows = torch.tensor(list(rows), dtype=torch.int32, device=cuda_device)
+    before = (k1.launches.count, k1.path_launches["chunked"].count)
+    calls = 0
+    for max_iter in (0, 1, k - 1, k, k + 1, 299, 301):
+        out = k1.mandelbrot_rows_cuda(rows, width, total, max_iter)
+        again = k1.mandelbrot_rows_cuda(rows, width, total, max_iter)
+        calls += 2
+        plain = mandelbrot_rows_ref(rows, width, total, max_iter)
+        assert torch.equal(out, plain), (width, max_iter, int((out != plain).sum()))
+        assert torch.equal(out, again)
+    assert (k1.launches.count, k1.path_launches["chunked"].count) == \
+        (before[0] + calls, before[1] + calls)
+
+
+def test_declare_target_global_region_on_the_card_equals_cpu(cuda_device):
+    """A global installed after a pinned buffer (device 0's handle shifts),
+    bound by regions on every virtual device, re-installed: the card's
+    outputs, handles and bytes equal the same run's on the CPU."""
+    g0 = np.random.default_rng(0).standard_normal(64).astype(np.float32)
+
+    def run(device):
+        table = KernelTable()
+
+        @table.kernel("use_global")
+        def use_global(g, x):
+            return {"out": g + x}
+
+        pool = DevicePool.virtual(3, table=table, device=device)
+        ex = TargetExecutor(pool)
+        try:
+            ex.ensure_resident(0, keep=torch.ones(4))
+            outs = []
+            for scale in (1.0, 3.0):            # install, then re-install
+                pool.install_global("g", torch.from_numpy(g0 * scale))
+                for d in range(3):
+                    outs.append(ex.target("use_global", d, MapSpec(
+                        to={"x": torch.full((64,), float(d))},
+                        from_={"out": TensorSpec((64,), torch.float32)},
+                        use_globals=("g",)))["out"].cpu())
+            s = pool.cost.summary()
+            return outs, dict(pool.globals["g"]), (s["bytes_to"], s["bytes_from"])
+        finally:
+            pool.stop_all()
+
+    card, host = run(cuda_device), run("cpu")
+    assert card[1:] == host[1:]
+    assert card[1][0] != card[1][1]
+    for a, b in zip(card[0], host[0]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("M,N,K", [(128, 128, 128), (96, 96, 96), (200, 72, 136),

@@ -431,3 +431,41 @@ def test_bench_topo_dp_ring_and_sparselu_byte_columns():
             if r["policy"] == "round-robin"]
     _same_rows(rows, want, ("policy", "racks", "per_rack", "devices",
                             "bytes_peer", "bytes_cross_rack"))
+
+
+def test_bench_topo_sparselu_heft_rows():
+    """The HEFT rows of the sparselu section (``benchmarks/topo_collectives.py``'s
+    menu: HEFT frozen at 5 us, priced blind on the flat peer link and aware
+    through the topology), beside round-robin, with the benchmark's own
+    asserts: every placement's results equal round-robin's bit for bit, and
+    aware HEFT puts no more bytes on the spine than round-robin."""
+    from repro_torch.bots import sparselu as bl
+    K, B = 3, 16
+    topo = T.Topology.two_tier(2, 2, inter_bw_ratio=0.1)
+    mat = bl._matrix(K, B)
+    menu = (("round-robin", "round-robin", None),
+            ("heft-blind", T.HeftPlacement(default_task_s=5e-6, use_observed=False), None),
+            ("heft-aware", T.HeftPlacement(default_task_s=5e-6, use_observed=False), topo))
+    rows, vals = [], {}
+    for name, policy, cfg_topo in menu:
+        rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=topo.n_devices, link=T.PAPER_ETHERNET,
+                                              topology=cfg_topo),
+                              table=bl._make_table(K), device="cpu")
+        try:
+            vals[name] = rt.wavefront_offload(bl._build_dag(mat, K, B), nowait=True,
+                                              peer=True, policy=policy)
+            rt.cost.topology = topo              # blind runs: account anyway
+            s = rt.cost.summary()
+        finally:
+            rt.shutdown()
+        rows.append({"section": "sparselu", "policy": name, "racks": 2, "per_rack": 2,
+                     "devices": topo.n_devices, "comm_s": s["comm_s"] + s["peer_s"],
+                     "bytes_peer": s["bytes_peer"],
+                     "bytes_cross_rack": s["bytes_peer_cross_rack"]})
+    _same_rows(rows, _bench("BENCH_topo.json")["sparselu"],
+               ("policy", "racks", "per_rack", "devices", "bytes_peer", "bytes_cross_rack"))
+    for name in ("heft-blind", "heft-aware"):
+        assert vals[name].keys() == vals["round-robin"].keys()
+        for k, v in vals["round-robin"].items():
+            assert torch.equal(vals[name][k], v), (name, k)
+    assert rows[2]["bytes_cross_rack"] <= rows[0]["bytes_cross_rack"]

@@ -45,7 +45,9 @@ from repro_torch.kernels.flash_decode.flash_decode import (decode_path,  # noqa:
 from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,  # noqa: E402
                                                   flash_decode_split_ref)
 from repro_torch.kernels.mandelbrot import ops as mb_ops  # noqa: E402
-from repro_torch.kernels.mandelbrot.mandelbrot import mandelbrot_rows_cuda  # noqa: E402
+from repro_torch.kernels.mandelbrot.mandelbrot import CHUNK, mandelbrot_rows_cuda  # noqa: E402
+from repro_torch.kernels.mandelbrot.ref import (mandelbrot_chunked_ref,  # noqa: E402
+                                                mandelbrot_rows_ref)
 
 # tolerances of the repo's kernel tests (tests/test_kernels.py:21-25)
 FP32 = dict(rtol=2e-5, atol=2e-5)
@@ -87,6 +89,70 @@ def test_mandelbrot_strips_tile_the_image():
                                      total_height=64, device="cpu")
              for s, ln in strip_partition(64, 3)]
     assert torch.equal(torch.cat(parts), full)
+
+
+@pytest.fixture(scope="module")
+def mandel_full_width():
+    """Rows of the main path's 4600 x 4600 image at max_iter 300: every 64th
+    row, the band around cy = 0 (c near -2, where |c| passes 2 on the left
+    edge) and the last row (the corners reach |c| = 2.39)."""
+    n = 4600
+    rows = torch.tensor(sorted({*range(0, n, 64), *range(2292, 2308), n - 1}),
+                        dtype=torch.int32)
+    return rows, n, mandelbrot_rows_ref(rows, n, n, 300)
+
+
+def test_mandelbrot_chunked_steps_equal_plain_at_full_width(mandel_full_width):
+    """The CUDA kernel's decomposition (escape tested once a chunk, the
+    escaped chunk replayed exactly) gives the plain version's counts, bit
+    for bit, across the main path's image."""
+    rows, n, plain = mandel_full_width
+    assert torch.equal(mandelbrot_chunked_ref(rows, n, n, 300, CHUNK), plain)
+
+
+def test_mandelbrot_chunk_is_the_sources():
+    """The wrapper's CHUNK is the chunk the source builds by default."""
+    src = (_build.CSRC / "mandelbrot.cu").read_text()
+    assert f"#define MANDELBROT_CHUNK {CHUNK}\n" in src
+    assert "constexpr int kChunk = MANDELBROT_CHUNK;" in src
+
+
+_SASS = """\
+\t\tFunction : _ZN12_GLOBAL__N_122mandelbrot_rows_kernelEPKiPiiiffffi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+                                                                     /* 0x000fe40000000800 */
+.L_x_0:
+        /*0010*/                   FMUL R2, R3, R3 ;
+        /*0020*/                   FADD.FTZ R4, R2, -R5 ;
+        /*0030*/              @!P0 FSETP.GTU.AND P0, PT, R2, 4, PT ;
+        /*0040*/               @P0 BRA `(.L_x_0) ;
+        /*0050*/                   BRA 0x10 ;
+        /*0060*/                   EXIT ;
+.L_x_1:
+        /*0070*/                   BRA `(.L_x_1);
+\t\tFunction : _ZN12_GLOBAL__N_113busy_loop_kernelEPfi
+        /*0000*/                   BRA 0x0 ;
+"""
+
+
+def test_sass_loops_reads_backward_branches():
+    """Each backward branch of the named function is a loop, by label or by
+    address; a branch to itself (the padding after EXIT) and the other
+    functions are not."""
+    loops = _build.sass_loops(_SASS, "mandelbrot_rows_kernel")
+    assert loops == [
+        {"start": 16, "end": 64, "instructions": 4, "BRA": 1, "FADD": 1, "FMUL": 1, "FSETP": 1},
+        {"start": 16, "end": 80, "instructions": 5, "BRA": 2, "FADD": 1, "FMUL": 1, "FSETP": 1}]
+    assert _build.sass_loops(_SASS, "busy_loop_kernel") == []
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 299, 301])
+def test_mandelbrot_chunked_steps_ragged(max_iter):
+    """max_iter of 0, 1, around the chunk and off 300; a width not a
+    multiple of 32; a strip that starts mid-image."""
+    rows = torch.arange(21, 58, dtype=torch.int32)
+    assert torch.equal(mandelbrot_chunked_ref(rows, 97, 80, max_iter, CHUNK),
+                       mandelbrot_rows_ref(rows, 97, 80, max_iter))
 
 
 # ---------------------------------------------------------------------------
