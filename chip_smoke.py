@@ -59,7 +59,16 @@ runs, printing one JSON line per phase:
    5 us again with each device's present table capped at 64 blocks (LRU
    spill and refetch), bit-identical to the uncapped run; and mandelbrot
    strips under locality and HEFT, the round-robin image and bytes with 8
-   K1 launches; then BOTS fib(21) (``recursive_offload``, one
+   K1 launches; then fault recovery under seeded faults
+   (``repro_torch.ft.inject_flaky``): K=16 over the peer fabric with every
+   eligible op failing at p = 0.05 under round-robin, locality and HEFT at
+   5 us, each equal to its fault-free run bit for bit, and host-mediated
+   with EXEC faults, equal to the serial kernel; K=5 with every SEND
+   failing (the funnel carries each edge); mandelbrot with one dead device,
+   each strip through ``with_retry`` (8 K1 launches, the serial image);
+   the DP fabric with transport retries under SEND/RECV faults at p = 0.2
+   (the steps' parameters bit for bit the host-mediated run's) and the
+   2 x 2 mean with a dead rack leader; then BOTS fib(21) (``recursive_offload``, one
    busy-loop kernel launch per leaf) and alignment (128 queries x 32
    references, the bank resident, query strips) on 8 virtual devices, each
    equal to its serial run bit for bit, after the busy-loop kernel against
@@ -116,7 +125,7 @@ Every kernel's launch count, and K1's, K2's, K3's, K4's and K6's counts per
 path, are set to 0 just before a main-path phase and read just after; a
 kernel of the path that did not launch fails the run, and so does a
 mandelbrot K1 launch off the ``chunked`` path, a sparselu K2 launch off the
-``cp_async`` path, a serve K3 launch off the ``split`` path, a bf16
+``cp_async`` path (re-executions under faults included), a serve K3 launch off the ``split`` path, a bf16
 K4 launch off the ``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a
 decode K6 launch off ``small_c``.
 Then it prints the ``{"kernels": [...]}`` line (times, bounds, launches) and,
@@ -174,6 +183,13 @@ FABRIC_TOPO = (2, 2, 0.1)
 # mse_grads at d_model 4096: a 64 MiB fp32 weight), batch 64 per device
 DP_D_MODEL, DP_BATCH, DP_DEVICES, DP_STEPS, DP_SYNC = 4096, 64, 4, 8, 4
 HIER_ELEMS = 1 << 22                    # per-device vector of the 2 x 2 mean
+# fault recovery: seeded faults from repro_torch.ft.inject_flaky
+FAULT_SEED = 1234
+FAULT_P = 0.05                          # chaos sparselu, every eligible op
+FAULT_RETRIES = 30                      # run_graph(max_retries=...) under chaos
+FAULT_POLICIES = ("round-robin", "locality", "heft-comm")
+DEAD_DEVICE = 2                         # mandelbrot: fails every EXEC
+DP_FAULT_P = 0.2                        # DP fabric: SEND/RECV faults
 Q8_RAGGED = (1, 255, 256, 257, 1000003) # wire kernel lengths off the 256-value block
 BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (64, 64, 64), (200, 72, 136))   # (M, N, K)
 # the serve phase's attention shapes (minitron-4b: 8 kv heads, r = 3, d = 128)
@@ -1438,7 +1454,7 @@ def phase_placement(torch, direct_row: dict, mandel_img, mandel_s: dict):
         if (s["bytes_to"], s["bytes_from"]) != (mandel_s["bytes_to"], mandel_s["bytes_from"]):
             fail(f"placement mandelbrot {policy}: bytes {s['bytes_to']}/{s['bytes_from']} "
                  f"!= round-robin {mandel_s['bytes_to']}/{mandel_s['bytes_from']}")
-    return k1_launches, k1_paths, [*rows.values(), capped]
+    return k1_launches, k1_paths, [*rows.values(), capped], ser, lus
 
 
 def phase_dp_fabric(torch, peaks):
@@ -1574,7 +1590,292 @@ def phase_dp_fabric(torch, peaks):
         fail("data_parallel_step: direct parameters differ from host-mediated")
     if not hier_equal:
         fail("hier_allreduce_mean differs from the serial left-associated mean")
-    return kq8, q8_launches
+    return kq8, q8_launches, {"params": steps["host-mediated"][0], "grads": ref,
+                              "scale": scale, "step_wall_s": steps["direct"][1]["wall_s"],
+                              "int8_wall_s": runs["direct+int8"]["wall_s"]}
+
+
+def _faults_by_op(pool) -> dict:
+    by_op: dict = {}
+    for d in pool.devices:
+        for op, n in getattr(d, "failures_by_op", {}).items():
+            by_op[op] = by_op.get(op, 0) + n
+    return by_op
+
+
+def _chaos_sparselu(torch, mat, policy: str, peer: bool, ops, p: float,
+                    free_wall: float):
+    """One sparselu wavefront on the card with ``inject_flaky(p, FAULT_SEED,
+    ops)`` on every device and ``run_graph(max_retries=FAULT_RETRIES)``; K2's
+    counts are set to 0 just before it and read just after.  Returns the row
+    and the factorization."""
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.ft import inject_flaky
+    from repro_torch.kernels.block_lu import block_lu as k2
+    K, B = mat.shape[0], mat.shape[2]
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES,
+                                      comm_mode="direct" if peer else "host-mediated"),
+                        table=bl._make_table(K), device="cuda")
+    try:
+        inject_flaky(rt.pool, p=p, seed=FAULT_SEED, ops=ops)
+        pol = None if policy == "round-robin" else _placement_policy(policy)
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = bl.wavefront(rt, mat, peer=peer, policy=pol, max_retries=FAULT_RETRIES)
+        wall = time.perf_counter() - t0
+        launches, paths = k2.launches.count, _path_counts(k2)
+        s = rt.cost.summary()
+        by_op = _faults_by_op(rt.pool)
+        blacklist = sorted(rt.pool.health.blacklist)
+        execs = sum(1 for c in rt.pool.trace if c.op == "EXEC")
+        tr = rt.transport
+    finally:
+        rt.shutdown()
+    n_tasks = len(bl._build_dag(mat, K, B))
+    expect = sum(m * m for m in range(K))
+    row = {"phase": "fault_recovery", "case": "chaos_sparselu",
+           "fabric": "peer" if peer else "host-mediated", "policy": policy,
+           "K": K, "B": B, "devices": LU_DEVICES, "p": p, "seed": FAULT_SEED,
+           "ops": list(ops), "max_retries": FAULT_RETRIES, "wall_s": wall,
+           "fault_free_wall_s": free_wall, "wall_ratio": wall / free_wall,
+           "faults": sum(by_op.values()), "faults_by_op": by_op,
+           "blacklist": blacklist, "exec_commands": execs,
+           "reexecuted_regions": execs - n_tasks,
+           "bmod_launches": launches, "bmod_extra_launches": launches - expect,
+           "bmod_path_launches": paths,
+           "fallbacks": getattr(tr, "fallbacks", 0),
+           "backoffs": getattr(tr, "backoffs", 0),
+           "backoff_s": getattr(tr, "backoff_s", 0.0),
+           "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
+           "bytes_peer": s["bytes_peer"]}
+    if launches < expect or paths["cp_async"] != launches:
+        fail(f"chaos sparselu {row['fabric']} {policy}: bmod launched {launches} times "
+             f"({paths} by path); expected at least {expect}, every one on cp_async")
+    if row["faults"] <= 0 or len(blacklist) > row["faults"]:
+        fail(f"chaos sparselu {row['fabric']} {policy}: {row['faults']} faults, "
+             f"blacklist {blacklist}")
+    return row, bl.assemble(res, K)
+
+
+def phase_fault_recovery(torch, ser, lus: dict, lu_rows: list, placed_rows: list,
+                         mandel_img, dp_ref: dict):
+    """Failures and recovery on the card, with seeded faults
+    (``repro_torch.ft.inject_flaky``, seed ``FAULT_SEED``):
+
+    (a) sparselu K=16, B=128, D=4 over the peer fabric, every eligible op
+        failing at ``FAULT_P``, under round-robin, locality and HEFT at 5 us:
+        each equal to that policy's fault-free peer run bit for bit;
+    (b) the same K=16 host-mediated with EXEC faults at ``FAULT_P``: equal to
+        the serial kernel;
+    (c) K=5, B=96 over the peer fabric with every SEND failing: equal to the
+        serial kernel, with more host-wire bytes than the healthy peer run;
+    (d) mandelbrot 4600² at D=8 with device ``DEAD_DEVICE`` failing every
+        EXEC, each strip through ``with_retry`` with one shared blacklist: the
+        serial image, blacklist {DEAD_DEVICE}, 8 K1 launches, all chunked;
+    (e) the DP fabric at d_model 4096, D=4, direct with transport retries,
+        SEND/RECV failing at ``DP_FAULT_P``: 8 ``data_parallel_step`` calls equal
+        to the fault-free host-mediated run's parameters bit for bit, direct
+        + int8 gradients within max|g|/64 of host-mediated; and the 2 x 2
+        hierarchical mean with rack 1's leader failing every SEND/RECV
+        (retries=1) equal to the serial mean bit for bit.
+
+    Returns the phase's K1 launches and paths, and its sparselu rows (their
+    K2 launches join the kernel line's)."""
+    from repro_torch import comm_modes as cm
+    from repro_torch.bots import mandelbrot as bm
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import (ClusterRuntime, MapSpec, PeerTransport, RuntimeConfig,
+                                  TensorSpec, Topology, sec, strip_partition)
+    from repro_torch.core.compression import true_div
+    from repro_torch.ft import FAULT_OPS, inject_flaky, with_retry
+    from repro_torch.kernels.block_lu import block_lu as k2
+    from repro_torch.kernels.mandelbrot import mandelbrot as k1
+    mat = bl._matrix(LU_K, LU_B)
+    free_walls = {"round-robin": lu_rows[1]["wall_s"],
+                  **{r["policy"]: r["wall_s"] for r in placed_rows
+                     if r.get("capacity_bytes") is None}}
+    rows = []
+    # (a) chaos over the peer fabric; round-robin's fault-free peer run (the
+    # fabric phase) equals ser bit for bit, as its phase checked
+    for policy in FAULT_POLICIES:
+        row, lu = _chaos_sparselu(torch, mat, policy, True, FAULT_OPS, FAULT_P,
+                                  free_walls[policy])
+        ref = lus.get(policy, ser)
+        row["equal_fault_free"] = bool(torch.equal(lu, ref))
+        row["max_abs_diff_vs_serial"] = float((lu - ser).abs().max())
+        emit(row)
+        rows.append(row)
+        if not row["equal_fault_free"]:
+            fail(f"chaos sparselu peer {policy} differs from its fault-free run")
+    # (b) host-mediated, EXEC faults only
+    row, lu = _chaos_sparselu(torch, mat, "round-robin", False, ("EXEC",), FAULT_P,
+                              lu_rows[0]["wall_s"])
+    row["max_abs_diff_vs_serial"] = float((lu - ser).abs().max())
+    row["equal_fault_free"] = row["max_abs_diff_vs_serial"] == 0.0
+    emit(row)
+    rows.append(row)
+    if not row["equal_fault_free"]:
+        fail(f"chaos sparselu host-mediated differs from the serial kernel by "
+             f"{row['max_abs_diff_vs_serial']}")
+    # (c) a dead peer wire: every SEND fails, every edge goes through the funnel
+    K5, B5 = LU_LARGE
+    mat5 = bl._matrix(K5, B5)
+    dead = {}
+    for p in (0.0, 1.0):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES, comm_mode="direct"),
+                            table=bl._make_table(K5), device="cuda")
+        try:
+            if p:
+                inject_flaky(rt.pool, p=p, seed=FAULT_SEED, ops=("SEND",))
+            ser5 = bl.serial(rt, mat5) if not p else dead[0.0]["ser"]
+            _reset_counts(k2)
+            t0 = time.perf_counter()
+            res = bl.wavefront(rt, mat5, peer=True, max_retries=FAULT_RETRIES)
+            wall = time.perf_counter() - t0
+            s = rt.cost.summary()
+            dead[p] = {"ser": ser5, "lu": bl.assemble(res, K5), "wall_s": wall,
+                       "host_bytes": s["bytes_to"] + s["bytes_from"],
+                       "bytes_peer": s["bytes_peer"], "faults": _faults_by_op(rt.pool),
+                       "launches": k2.launches.count, "paths": _path_counts(k2)}
+        finally:
+            rt.shutdown()
+    d1 = dead[1.0]
+    row = {"phase": "fault_recovery", "case": "dead_peer_wire", "K": K5, "B": B5,
+           "devices": LU_DEVICES, "p": 1.0, "seed": FAULT_SEED, "ops": ["SEND"],
+           "wall_s": d1["wall_s"], "fault_free_wall_s": dead[0.0]["wall_s"],
+           "wall_ratio": d1["wall_s"] / dead[0.0]["wall_s"],
+           "faults": sum(d1["faults"].values()), "faults_by_op": d1["faults"],
+           "host_bytes": d1["host_bytes"], "fault_free_host_bytes": dead[0.0]["host_bytes"],
+           "bytes_peer": d1["bytes_peer"], "bmod_launches": d1["launches"],
+           "bmod_path_launches": d1["paths"],
+           "equal_fault_free": bool(torch.equal(d1["lu"], dead[0.0]["lu"])),
+           "max_abs_diff_vs_serial": float((d1["lu"] - d1["ser"]).abs().max())}
+    emit(row)
+    rows.append(row)
+    expect5 = sum(m * m for m in range(K5))
+    if not (row["equal_fault_free"] and row["max_abs_diff_vs_serial"] == 0.0):
+        fail(f"dead peer wire: sparselu differs ({row['max_abs_diff_vs_serial']})")
+    if not (row["faults"] > 0 and row["host_bytes"] > row["fault_free_host_bytes"]):
+        fail(f"dead peer wire: {row['faults']} faults, host bytes {row['host_bytes']} "
+             f"(healthy {row['fault_free_host_bytes']})")
+    if d1["launches"] < expect5 or d1["paths"]["cp_async"] != d1["launches"]:
+        fail(f"dead peer wire: bmod launched {d1['launches']} ({d1['paths']})")
+    # the healthy K=5 peer run is on the main path too: its launches count
+    rows.append({"case": "dead_peer_wire_fault_free",
+                 "bmod_launches": dead[0.0]["launches"],
+                 "bmod_path_launches": dead[0.0]["paths"]})
+    if dead[0.0]["paths"]["cp_async"] != dead[0.0]["launches"]:
+        fail(f"healthy K=5 peer run: bmod launched {dead[0.0]['paths']}")
+    # (d) mandelbrot strips with a dead device, each through with_retry
+    n = MANDEL_SIZE
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=MANDEL_DEVICES),
+                        table=bm._make_table(n, n, MANDEL_ITER), device="cuda")
+    try:
+        inject_flaky(rt.pool, p=1.0, seed=FAULT_SEED, devices=[DEAD_DEVICE])
+        img_rows = bm.all_rows(n)
+        blacklist: set = set()
+        _reset_counts(k1)
+        t0 = time.perf_counter()
+        parts = []
+        for dev, (s0, ln) in enumerate(strip_partition(n, MANDEL_DEVICES)):
+            maps = MapSpec(to={"rows": sec(img_rows, s0, ln)},
+                           from_={"out": TensorSpec((ln, n), torch.int32)})
+            parts.append(with_retry(rt.ex, "mandel_strip", dev, maps,
+                                    blacklist=blacklist)["out"])
+        img = torch.cat(parts)
+        wall = time.perf_counter() - t0
+        k1_launches, k1_paths = k1.launches.count, _path_counts(k1)
+        by_op = _faults_by_op(rt.pool)
+        ran_on = sorted({c.device for c in rt.cost.compute})
+    finally:
+        rt.shutdown()
+    equal = bool(torch.equal(img, mandel_img))
+    emit({"phase": "fault_recovery", "case": "mandelbrot_dead_device", "size": n,
+          "devices": MANDEL_DEVICES, "dead_device": DEAD_DEVICE, "wall_s": wall,
+          "faults_by_op": by_op, "blacklist": sorted(blacklist),
+          "devices_that_ran": ran_on, "kernel_launches": k1_launches,
+          "kernel_path_launches": k1_paths, "image_equal_serial": equal})
+    if not equal or blacklist != {DEAD_DEVICE} or DEAD_DEVICE in ran_on:
+        fail(f"mandelbrot with a dead device: image equal {equal}, blacklist "
+             f"{sorted(blacklist)}, ran on {ran_on}")
+    if k1_launches != MANDEL_DEVICES or k1_paths != {"chunked": k1_launches}:
+        fail(f"mandelbrot with a dead device: {k1_launches} K1 launches ({k1_paths}), "
+             f"expected {MANDEL_DEVICES}, all chunked")
+    # (e) the DP fabric under SEND/RECV chaos
+    d, nb, D = DP_D_MODEL, DP_BATCH, DP_DEVICES
+    params = cm.make_params(d)
+    batches = cm.make_batches(d, nb, D)
+
+    def chaos_rt(compress=False):
+        return cm.make_runtime(RuntimeConfig(n_virtual=D, comm_mode="direct",
+                                             compress=compress), "cuda",
+                               (DP_FAULT_P, FAULT_SEED))
+
+    rt = chaos_rt()
+    try:
+        t0 = time.perf_counter()
+        p_out = None
+        for _ in range(DP_STEPS):
+            p_out = rt.data_parallel_step("mse_grads", params, batches, sync_every=DP_SYNC)
+        step_wall = time.perf_counter() - t0
+        step_faults = cm.fault_report(rt)
+    finally:
+        rt.shutdown()
+    step_equal = all(torch.equal(p_out[k], dp_ref["params"][k]) for k in ("w", "b"))
+    rt = chaos_rt(compress=True)
+    try:
+        t0 = time.perf_counter()
+        g8 = rt.data_parallel_grads("mse_grads", params, batches)
+        int8_wall = time.perf_counter() - t0
+        int8_faults = cm.fault_report(rt)
+    finally:
+        rt.shutdown()
+    int8_err = max(float((g8[k] - dp_ref["grads"][k]).abs().max()) for k in ("w", "b"))
+    topo = Topology.two_tier(*FABRIC_TOPO[:2], inter_bw_ratio=FABRIC_TOPO[2])
+    pool, handles, specs, values = cm.collective_pool(topo, HIER_ELEMS, seed=0,
+                                                      device="cuda")
+    try:
+        inject_flaky(pool, p=1.0, seed=FAULT_SEED, devices=[topo.leader(1)],
+                     ops=("SEND", "RECV"))
+        tr = PeerTransport(retries=1, backoff_base_s=1e-5, topology=topo)
+        t0 = time.perf_counter()
+        tr.hier_allreduce_mean(pool, handles, specs)
+        pool.sync()
+        hier_wall = time.perf_counter() - t0
+        means = [pool.transfer_from(i, handles[i][0]) for i in range(topo.n_devices)]
+        hier_faults = _faults_by_op(pool)
+    finally:
+        pool.stop_all()
+    serial = values[0][0]
+    for v in values[1:]:
+        serial = serial + v[0]
+    serial = true_div(serial, topo.n_devices)
+    hier_equal = all(torch.equal(m, serial) for m in means)
+    emit({"phase": "fault_recovery", "case": "dp_fabric", "d_model": d, "devices": D,
+          "p": DP_FAULT_P, "seed": FAULT_SEED, "ops": ["SEND", "RECV"],
+          "transport_retries": cm.CHAOS_RETRIES,
+          "step": {"wall_s": step_wall, "fault_free_wall_s": dp_ref["step_wall_s"],
+                   "steps": DP_STEPS, "params_equal_host_mediated": step_equal,
+                   **step_faults},
+          "int8_grads": {"wall_s": int8_wall, "fault_free_wall_s": dp_ref["int8_wall_s"],
+                         "max_abs_err": int8_err, "bound": dp_ref["scale"] / 64,
+                         **int8_faults},
+          "hier_mean_dead_leader": {"leader": topo.leader(1), "elems": HIER_ELEMS,
+                                    "wall_s": hier_wall, "bitwise_serial": hier_equal,
+                                    "faults_by_op": hier_faults,
+                                    "fallbacks": tr.fallbacks, "backoffs": tr.backoffs,
+                                    "backoff_s": tr.backoff_s}})
+    if not step_equal or step_faults["faults"] <= 0:
+        fail(f"DP steps under chaos: params equal {step_equal}, "
+             f"{step_faults['faults']} faults")
+    if not (int8_err <= dp_ref["scale"] / 64 and int8_faults["faults"] > 0):
+        fail(f"int8 DP grads under chaos off by {int8_err} "
+             f"(bound {dp_ref['scale'] / 64}), {int8_faults['faults']} faults")
+    if not (hier_equal and tr.fallbacks > 0):
+        fail(f"hierarchical mean with a dead rack leader: bitwise {hier_equal}, "
+             f"{tr.fallbacks} fallbacks")
+    return k1_launches, k1_paths, rows
 
 
 def phase_fib_alignment(torch, peaks):
@@ -2270,14 +2571,16 @@ def main() -> int:
     lu_rows = [_sparselu_once(torch, LU_K, LU_B, LU_DEVICES)]
     _sparselu_once(torch, *LU_LARGE, LU_DEVICES)
     lu_rows += phase_sparselu_fabric(torch, lu_rows[0])
-    kq8, kq8_launches = phase_dp_fabric(torch, peaks)
-    placed_k1, placed_paths, placed_rows = phase_placement(torch, lu_rows[1], mandel_img,
-                                                           mandel_s)
-    del mandel_img
-    k1_launches += placed_k1
-    k1_paths = {p: k1_paths.get(p, 0) + placed_paths.get(p, 0)
-                for p in {*k1_paths, *placed_paths}}
-    lu_rows += placed_rows
+    kq8, kq8_launches, dp_ref = phase_dp_fabric(torch, peaks)
+    placed_k1, placed_paths, placed_rows, lu_ser, lu_placed = phase_placement(
+        torch, lu_rows[1], mandel_img, mandel_s)
+    fault_k1, fault_paths, fault_rows = phase_fault_recovery(
+        torch, lu_ser, lu_placed, lu_rows, placed_rows, mandel_img, dp_ref)
+    del mandel_img, lu_placed
+    for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths)):
+        k1_launches += launches
+        k1_paths = {p: k1_paths.get(p, 0) + paths.get(p, 0) for p in {*k1_paths, *paths}}
+    lu_rows += placed_rows + fault_rows
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
                 for p in lu_rows[0]["bmod_path_launches"]}

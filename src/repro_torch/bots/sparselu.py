@@ -122,16 +122,19 @@ def _build_dag(mat: torch.Tensor, K: int, B: int):
 
 
 def wavefront(rt: ClusterRuntime, mat: torch.Tensor, *,
-              peer: bool = False, policy: Any = None) -> Dict[str, torch.Tensor]:
+              peer: bool = False, policy: Any = None,
+              **graph_kw) -> Dict[str, torch.Tensor]:
     """The offloaded program: the task DAG as nowait waves, with each wave's
     shared operands pinned once per device (``resident=True``).
     ``peer=True`` keeps every block on its device and moves each dependency
     device→device over the runtime's peer fabric instead of through the
     host (the DAG's edges leave the funnel; each block is fetched once at
-    the end).  ``policy`` places the tasks (default round-robin)."""
+    the end).  ``policy`` places the tasks (default round-robin); other
+    keywords (``max_retries``) go to :func:`~..core.taskgraph.run_graph`."""
     K, _, B, _ = mat.shape
     return rt.wavefront_offload(_build_dag(mat, K, B), nowait=True,
-                                resident=True, peer=peer, policy=policy)
+                                resident=True, peer=peer, policy=policy,
+                                **graph_kw)
 
 
 def serial(rt: ClusterRuntime, mat: torch.Tensor) -> torch.Tensor:

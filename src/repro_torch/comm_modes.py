@@ -20,11 +20,17 @@ same numbers), the same runtime calls and the same byte columns.
 
 Every function takes ``device`` (the card unless the caller asks for the
 CPU) and returns its rows, plus the values its callers hold against each
-other.
+other.  :func:`modes` and :func:`dps` also take ``inject=(p, seed)``: every
+device of every runtime fails SEND/RECV with probability ``p`` on a schedule
+keyed by ``seed`` (``benchmarks/comm_modes.py --inject-p``), direct-mode
+runtimes retry each message ``CHAOS_RETRIES`` times before the funnel, and
+each row reports its injected faults by op and the transport's
+``fallbacks``, ``backoffs`` and ``backoff_s``.  The values are the
+fault-free run's either way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +39,11 @@ from ._device import DeviceLike
 from .core import (ClusterRuntime, DevicePool, KernelTable, PeerTransport,
                    RuntimeConfig, TensorSpec, Topology)
 from .core.costmodel import PAPER_ETHERNET
+from .ft import inject_flaky
 from .optim import AdamW, AdamWConfig
+
+#: Transport retries a direct-mode runtime gets under ``inject``.
+CHAOS_RETRIES = 3
 
 
 def mse_grads(params, batch):
@@ -73,8 +83,36 @@ def _row(s: Dict[str, float]) -> Dict[str, float]:
             "bytes_from": s["bytes_from"], "bytes_peer": s["bytes_peer"]}
 
 
+def make_runtime(cfg: RuntimeConfig, device: DeviceLike,
+                 inject: Optional[Tuple[float, int]] = None) -> ClusterRuntime:
+    """A runtime over ``make_table()``; under ``inject=(p, seed)`` every
+    device fails SEND/RECV with probability ``p`` and a direct-mode runtime
+    retries each message before the funnel."""
+    if inject is not None and cfg.comm_mode == "direct":
+        cfg.transport_retries = max(cfg.transport_retries, CHAOS_RETRIES)
+    rt = ClusterRuntime(cfg, table=make_table(), device=device)
+    if inject is not None:
+        inject_flaky(rt.pool, p=inject[0], seed=inject[1], ops=("SEND", "RECV"))
+    return rt
+
+
+def fault_report(rt: ClusterRuntime) -> Dict[str, Any]:
+    """Injected faults by op over a runtime's devices, and its transport's
+    fallbacks and backoffs (zero for a fault-free or host-mediated one)."""
+    by_op: Dict[str, int] = {}
+    for d in rt.pool.devices:
+        for op, n in getattr(d, "failures_by_op", {}).items():
+            by_op[op] = by_op.get(op, 0) + n
+    tr = rt.transport
+    return {"faults": sum(by_op.values()), "faults_by_op": by_op,
+            "fallbacks": getattr(tr, "fallbacks", 0),
+            "backoffs": getattr(tr, "backoffs", 0),
+            "backoff_s": getattr(tr, "backoff_s", 0.0)}
+
+
 def modes(d_model: int = 512, n_batch: int = 64, device_counts=(2, 4, 8), *,
-          device: DeviceLike = "cuda") -> Tuple[List[Dict], Dict[str, Any]]:
+          device: DeviceLike = "cuda", inject: Optional[Tuple[float, int]] = None
+          ) -> Tuple[List[Dict], Dict[str, Any]]:
     """One ``data_parallel_grads`` per (mode, D); the rows and each mode's
     mean gradient at the largest D."""
     params = make_params(d_model)
@@ -82,31 +120,33 @@ def modes(d_model: int = 512, n_batch: int = 64, device_counts=(2, 4, 8), *,
     for mode, compress in (("host-mediated", False), ("direct", False),
                            ("direct+int8", True)):
         for n in device_counts:
-            rt = ClusterRuntime(RuntimeConfig(
+            rt = make_runtime(RuntimeConfig(
                 n_virtual=n, comm_mode=mode.split("+")[0], compress=compress,
-                link=PAPER_ETHERNET), table=make_table(), device=device)
+                link=PAPER_ETHERNET), device, inject)
             try:
                 g = rt.data_parallel_grads("mse_grads", params,
                                            make_batches(d_model, n_batch, n))
                 s = rt.cost.summary()
             finally:
                 rt.shutdown()
-            rows.append({"mode": mode, "devices": n, **_row(s)})
+            rows.append({"mode": mode, "devices": n, **_row(s),
+                         **(fault_report(rt) if inject is not None else {})})
             if n == device_counts[-1]:
                 grads[mode] = g
     return rows, grads
 
 
 def dps(d_model: int = 256, n_batch: int = 16, n: int = 4, steps: int = 8,
-        sync_every: int = 4, *, device: DeviceLike = "cuda"
+        sync_every: int = 4, *, device: DeviceLike = "cuda",
+        inject: Optional[Tuple[float, int]] = None
         ) -> Tuple[List[Dict], Dict[str, Any]]:
     """Gradient funnel + host AdamW, then ``data_parallel_step`` with
     host-mediated and direct syncs; the rows and each mode's parameters."""
     params = make_params(d_model)
     batches = make_batches(d_model, n_batch, n)
     rows, got = [], {}
-    rt = ClusterRuntime(RuntimeConfig(n_virtual=n, link=PAPER_ETHERNET),
-                        table=make_table(), device=device)
+    rt = make_runtime(RuntimeConfig(n_virtual=n, link=PAPER_ETHERNET), device,
+                      inject)
     try:
         opt, host_params = AdamW(AdamWConfig()), params
         state = opt.init(params)
@@ -117,12 +157,12 @@ def dps(d_model: int = 256, n_batch: int = 16, n: int = 4, steps: int = 8,
     finally:
         rt.shutdown()
     rows.append({"update": "host (per-step grads)", "devices": n,
-                 "steps": steps, **_row(s)})
+                 "steps": steps, **_row(s),
+                 **(fault_report(rt) if inject is not None else {})})
     got["host"] = host_params
     for mode in ("host-mediated", "direct"):
-        rt = ClusterRuntime(RuntimeConfig(n_virtual=n, comm_mode=mode,
-                                          link=PAPER_ETHERNET),
-                            table=make_table(), device=device)
+        rt = make_runtime(RuntimeConfig(n_virtual=n, comm_mode=mode,
+                                        link=PAPER_ETHERNET), device, inject)
         try:
             p = None
             for _ in range(steps):
@@ -133,7 +173,8 @@ def dps(d_model: int = 256, n_batch: int = 16, n: int = 4, steps: int = 8,
             rt.shutdown()
         got[mode] = p
         rows.append({"update": f"device {mode} (sync/{sync_every})",
-                     "devices": n, "steps": steps, **_row(s)})
+                     "devices": n, "steps": steps, **_row(s),
+                     **(fault_report(rt) if inject is not None else {})})
     return rows, got
 
 

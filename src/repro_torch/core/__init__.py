@@ -12,6 +12,8 @@ Public API (counterparts of ``repro.core``):
   Topology                     racks and per-pair links of the peer fabric
   ClusterRuntime / RuntimeConfig   deployable runtime (host-mediated or
                                direct), data-parallel fabric, cost model
+  DeviceFailure / HealthRegistry   failures that run_graph and the peer
+                               transport recover from (injection: repro_torch.ft)
 """
 from .costmodel import (CostModel, DEFAULT_KERNEL_TIME_S, Event, LinkModel,
                         PAPER_ETHERNET, PeerRecord, PlacementRecord,

@@ -25,8 +25,13 @@ the host funnel.
 Declare-target globals (:meth:`DevicePool.install_global`) live on every
 device for the pool's lifetime, not a region's.
 
-Left for later slices: elastic membership and command deadlines (ROADMAP
-item 11).
+A failed fire-and-forget command (ALLOC, FREE, XFER_TO, SEND, RECV) stashes
+its error for the device's next synchronizing command;
+:meth:`DevicePool.absorb_failures` clears the stashed
+:class:`DeviceFailure` errors that recovery handles itself.
+
+Left for later slices: command deadlines (ROADMAP item 11b) and elastic
+membership (item 11c).
 """
 from __future__ import annotations
 
@@ -204,7 +209,8 @@ class DeviceFailure(RuntimeError):
     """A device-side command failed (injected or real).
 
     ``op`` names the failed command and ``device`` the device that raised.
-    Graph-level recovery from it is ROADMAP item 11.
+    :func:`~.taskgraph.run_graph` and :func:`repro_torch.ft.with_retry`
+    recover from it; any other exception surfaces as it is.
     """
 
     def __init__(self, message: str, *, op: str = "EXEC",
@@ -300,6 +306,11 @@ class HealthRegistry:
         with self._lock:
             out = [d for d in range(n) if d not in self._blacklist]
         return out if out else list(range(n))
+
+
+def _drop_sent_if_delivered(fut: "_cf.Future") -> None:
+    if fut.exception() is None:
+        fut.sent = None
 
 
 class _WorkItem:
@@ -414,12 +425,14 @@ class DevicePool:
 
     def _stream_deps(self, device: int, fut: "_cf.Future",
                      reads: Sequence[int], writes: Sequence[int],
-                     extra_deps: Sequence["_cf.Future"]) -> List["_cf.Future"]:
+                     extra_deps: Sequence["_cf.Future"],
+                     wait_readers: bool = True) -> List["_cf.Future"]:
         """Collect this command's dependencies and register it; under locks[d].
 
         Read-after-write: wait for the last writer of every handle touched.
         Write-after-read: a writer also waits for every reader registered
-        since that last write (including open :class:`StreamTicket`\\ s).
+        since that last write (including open :class:`StreamTicket`\\ s),
+        unless ``wait_readers`` is False.
         """
         lw, rd = self._last_write[device], self._readers[device]
         deps: Dict[int, "_cf.Future"] = {}
@@ -427,7 +440,7 @@ class DevicePool:
             f = lw.get(h)
             if f is not None and not f.done():
                 deps[id(f)] = f
-        for h in writes:
+        for h in writes if wait_readers else ():
             for f in rd.get(h, ()):
                 if not f.done():
                     deps[id(f)] = f
@@ -473,14 +486,16 @@ class DevicePool:
 
     def _submit(self, device: int, fn: Callable[[], Any], *,
                 reads: Sequence[int] = (), writes: Sequence[int] = (),
-                extra_deps: Sequence["_cf.Future"] = ()) -> "_cf.Future":
+                extra_deps: Sequence["_cf.Future"] = (),
+                wait_readers: bool = True) -> "_cf.Future":
         # stopped-check and registration are atomic under the issue lock so
         # no item can land behind stop_all's close sentinel
         with self.locks[device]:
             if self._stopped[device]:
                 raise DeviceStoppedError(f"device {device} is stopped")
             fut: "_cf.Future" = _cf.Future()
-            deps = self._stream_deps(device, fut, reads, writes, extra_deps)
+            deps = self._stream_deps(device, fut, reads, writes, extra_deps,
+                                     wait_readers)
             out = self._outstanding[device]
             if len(out) > 64:                # prune settled commands in place
                 out[:] = [f for f in out if not f.done()]
@@ -490,10 +505,11 @@ class DevicePool:
 
     def _submit_async(self, device: int, fn: Callable[[], Any], *,
                       reads: Sequence[int] = (), writes: Sequence[int] = (),
-                      extra_deps: Sequence["_cf.Future"] = ()) -> "_cf.Future":
+                      extra_deps: Sequence["_cf.Future"] = (),
+                      wait_readers: bool = True) -> "_cf.Future":
         """Enqueue fire-and-forget; failures surface at the next sync op."""
         fut = self._submit(device, fn, reads=reads, writes=writes,
-                           extra_deps=extra_deps)
+                           extra_deps=extra_deps, wait_readers=wait_readers)
 
         def _stash(f: "_cf.Future") -> None:
             err = f.exception()
@@ -507,6 +523,22 @@ class DevicePool:
         err, self._async_errors[device] = self._async_errors[device], None
         if err is not None:
             raise err
+
+    def absorb_failures(self) -> List[BaseException]:
+        """Clear the stashed :class:`DeviceFailure` errors pool-wide; return them.
+
+        Recovery handles these itself (re-place, reroute, replay); left
+        armed, one would surface at an innocent region's next sync.  Other
+        stashed errors stay and surface as before.
+        """
+        absorbed: List[BaseException] = []
+        for d in range(len(self.devices)):
+            with self.locks[d]:
+                err = self._async_errors[d]
+                if isinstance(err, DeviceFailure):
+                    self._async_errors[d] = None
+                    absorbed.append(err)
+        return absorbed
 
     def _traced(self, device: int, cmd: Command,
                 fn: Callable[[], Any]) -> Callable[[], Any]:
@@ -600,7 +632,12 @@ class DevicePool:
                 writes=cmd.writes)
             return handle
 
-    def free(self, device: int, handle: int) -> None:
+    def free(self, device: int, handle: int, *, lost: bool = False) -> None:
+        """FREE ``handle``.  ``lost=True`` (a heal dropping a buffer whose
+        write failed): the FREE does not wait for regions still registered
+        as its readers — each of them fails on that write anyway — so it
+        cannot hold the device's ALLOC/FREE chain behind a reader whose
+        region itself waits for an ALLOC."""
         with self.locks[device]:
             self.mirrors[device].free(handle)
             cmd = Command("FREE", device, handle=handle,
@@ -610,7 +647,7 @@ class DevicePool:
                 device,
                 self._traced(device, cmd,
                              lambda: self.devices[device].execute(cmd, self.table)),
-                writes=cmd.writes)
+                writes=cmd.writes, wait_readers=not lost)
 
     def transfer_to(self, device: int, handle: int, value: Any,
                     section: Optional[slice] = None, tag: str = "") -> "_cf.Future":
@@ -627,11 +664,16 @@ class DevicePool:
             self._log(cmd)
             self.cost.record_transfer("to", device, nbytes, tag=tag)
             payload = {"value": value, "section": section}
-            return self._submit_async(
+            fut = self._submit_async(
                 device,
                 self._traced(device, cmd,
                              lambda: self.devices[device].execute(cmd, self.table, payload)),
                 writes=cmd.writes)
+        # a heal re-sends what a failed XFER was to deliver
+        # (TargetExecutor._heal_locked); a delivered one lets it go
+        fut.sent = value
+        fut.add_done_callback(_drop_sent_if_delivered)
+        return fut
 
     def transfer_from(self, device: int, handle: int,
                       section: Optional[slice] = None, tag: str = "") -> torch.Tensor:

@@ -325,6 +325,21 @@ class PresentTable:
         self.touch(e)
         return e
 
+    def pop_entry(self, name: str) -> Optional[PresentEntry]:
+        """Remove and return an entry without touching refcounts or buffers
+        (the caller owns the device buffers): a heal drops an entry whose
+        write was lost, an elastic rescale relocates one."""
+        return self._entries.pop(name, None)
+
+    def adopt(self, entry: PresentEntry) -> bool:
+        """Install a relocated entry; False (no-op) if the name is taken —
+        the table keeps its own copy, which was reachable all along."""
+        if entry.name in self._entries:
+            return False
+        self.touch(entry)
+        self._entries[entry.name] = entry
+        return True
+
     def release(self, name: str) -> Optional[PresentEntry]:
         """Refcount--; returns the now-dead entry (caller frees) or None."""
         e = self._entries.get(name)

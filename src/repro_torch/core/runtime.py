@@ -20,8 +20,12 @@ trainer *fabric* built from target regions:
 buffer resident past it spills the least-recently-used evictable entry and
 the next binding refetches it (capacity changes traffic, never results).
 
-Left for later slices, each raising ``NotImplementedError``: transport
-retries (ROADMAP item 11) and calibration (item 12).
+``transport_retries`` makes the direct fabric retry a failed message
+(seeded backoff) and then fall back to the funnel.
+
+Left for later slices: command deadlines and transport op timeouts (ROADMAP
+item 11b, not fields yet) and calibration (item 12, raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -63,7 +67,15 @@ class RuntimeConfig:
     # content fetched to the host first) and is refetched on its next
     # binding
     device_capacity_bytes: Optional[int] = None
-    transport_retries: int = 0                    # ROADMAP item 11
+    # comm_mode="direct" fault tolerance: >0 makes the peer transport wait
+    # each sendrecv, re-send a message that failed with an injected fault
+    # this many times (after a seeded backoff: base·2^(attempt-1), capped,
+    # scaled by a draw in [0.5, 1) from transport_backoff_seed), then carry
+    # it through the host funnel; values are the same either way.  0 keeps
+    # the fire-and-forget fabric
+    transport_retries: int = 0
+    transport_backoff_base_s: float = 1e-3
+    transport_backoff_seed: int = 0
     # where every virtual device lives: the card unless the caller asks for
     # the CPU (raises when CUDA is absent)
     device: DeviceLike = "cuda"
@@ -89,10 +101,6 @@ class ClusterRuntime:
         """``device`` overrides ``cfg.device`` when given."""
         if cfg.comm_mode not in ("host-mediated", "direct"):
             raise ValueError(f"unknown comm_mode {cfg.comm_mode!r}")
-        if cfg.transport_retries > 0:
-            raise NotImplementedError(
-                "transport_retries (peer retry and funnel fallback): "
-                "ROADMAP item 11")
         self.cfg = cfg
         self.device = resolve_device(cfg.device if device is None else device)
         if cfg.n_virtual is not None:
@@ -115,7 +123,10 @@ class ClusterRuntime:
         self.pool.cost.peer_link = cfg.peer_link
         self.pool.cost.topology = cfg.topology
         self.transport: Transport = (
-            PeerTransport(cfg.peer_link, topology=cfg.topology)
+            PeerTransport(cfg.peer_link, retries=cfg.transport_retries,
+                          backoff_base_s=cfg.transport_backoff_base_s,
+                          seed=cfg.transport_backoff_seed,
+                          topology=cfg.topology)
             if cfg.comm_mode == "direct" else HostFunnelTransport())
         self._ef_residual: Optional[List[Any]] = None
         self._dps: Optional[Dict[str, Any]] = None   # data_parallel_step state

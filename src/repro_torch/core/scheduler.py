@@ -13,7 +13,7 @@ Port of ``repro.core.scheduler``: thin builders that lower into the
   where every inter-device dependency round-trips through the host — or,
   with ``peer=True``, moves device→device over the peer fabric.
 
-Speculative re-dispatch of straggler strips is ROADMAP item 11.
+Speculative re-dispatch of straggler strips is ROADMAP item 11b.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def offload_strips(ex: TargetExecutor, kernel: str, total: int,
     """
     if speculate and nowait:
         raise NotImplementedError(
-            "offload_strips(speculate=True): ROADMAP item 11")
+            "offload_strips(speculate=True): ROADMAP item 11b")
     strips = strip_partition(total, len(ex.pool))
     nodes = [TaskNode(name=f"strip{i}", kernel=kernel,
                       make_maps=(lambda s=start, l=length:

@@ -43,7 +43,11 @@ the next binding refetches it.  A spill changes traffic, never a result.
 (:meth:`~.device.DevicePool.install_global`), which no region allocates,
 sends or frees.
 
-Left for later slices: self-healing of failed writers (ROADMAP item 11).
+A resident entry whose last writer failed with an injected
+:class:`~.device.DeviceFailure` heals at its next binding
+(:meth:`TargetExecutor._heal_locked`): the value the failed XFER was to
+deliver is sent again; an entry that has no such value (device-ahead) is
+dropped and the failure raised, for graph-level recovery to replay.
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from . import _tree
-from .device import DevicePool, DeviceStoppedError, StreamTicket, as_host_tensor
+from .device import (DeviceFailure, DevicePool, DeviceStoppedError,
+                     StreamTicket, as_host_tensor)
 from .mediary import (PresentEntry, TensorSpec, host_version, leaf_unchanged,
                       same_treedef)
 
@@ -393,6 +398,57 @@ class TargetExecutor:
         table.bytes_refetched += ent.nbytes()
         table.touch(ent)
 
+    def _heal_locked(self, device: int, ent: PresentEntry, tag: str) -> None:
+        """Repair a resident entry whose last writer failed (injected fault).
+
+        Caller holds ``env_locks[device]``.  A failed XFER_TO or RECV leaves
+        the device buffer unwritten while the entry still looks bound; a
+        region that bound it would compute on garbage.  Where the value the
+        write was to deliver is known, send it again: the XFER's own
+        issue-time copy, else the host view if it is unchanged since it was
+        recorded (tensors are mutable, so the caller's tensor may no longer
+        hold the entered value).  Where it is not known (a device-ahead
+        entry, an ``alloc_resident`` placeholder, a host view changed in
+        place), drop the entry — free its buffers, strike the name — and
+        raise the stored :class:`DeviceFailure`, so graph-level recovery
+        re-propagates the edge or replays the producer.  Any other error
+        re-raises.
+        """
+        pool = self.pool
+        for i, f in enumerate(ent.write_futs):
+            if f is None or not f.done():
+                continue
+            err = f.exception()
+            if err is None:
+                continue
+            if not isinstance(err, DeviceFailure):
+                raise err
+            leaf = ent.host_leaves[i] if i < len(ent.host_leaves) else None
+            value = None
+            if not ent.device_ahead and leaf is not None:
+                value = getattr(f, "sent", None)
+                if value is None and not (
+                        isinstance(leaf, torch.Tensor)
+                        and leaf._version != ent.host_versions[i]):
+                    value = leaf
+            if value is None:
+                for h in ent.handles:
+                    pool.free(device, h, lost=True)
+                ent.handles = []
+                ent.write_futs = []
+                pool.present[device].pop_entry(ent.name)
+                with pool.locks[device]:
+                    if pool._async_errors[device] is err:
+                        pool._async_errors[device] = None
+                raise err
+            ent.write_futs[i] = pool.transfer_to(
+                device, ent.handles[i], value, tag=f"{tag}:heal:{ent.name}")
+            ent.version += 1
+            # the failure is handled: an innocent sync must not trip on it
+            with pool.locks[device]:
+                if pool._async_errors[device] is err:
+                    pool._async_errors[device] = None
+
     def _revive(self, device: int, ent: PresentEntry, leaves: List[Any],
                 treedef: Any, tag: str) -> None:
         """Refresh a *spilled* entry with a (possibly new) host value."""
@@ -497,6 +553,9 @@ class TargetExecutor:
                 leaves = [l.clone() for l in ent.spill_leaves]
                 return (leaves[0] if ent.treedef is None
                         else _tree.unflatten(ent.treedef, leaves))
+            # a failed writer leaves garbage on the device: send the value
+            # again, or raise the failure for graph recovery to replay
+            self._heal_locked(device, ent, f"fetch:{name}")
             ent.refcount += 1          # hold: a concurrent exit_data must not
                                        # free the handles mid-fetch
             handles, treedef = list(ent.handles), ent.treedef
@@ -576,6 +635,8 @@ class TargetExecutor:
             sent = pool.present[src].get(name)
             if sent is None:
                 raise KeyError(f"{name!r} is not resident on device {src}")
+            # a damaged source must not propagate garbage
+            self._heal_locked(src, sent, tag)
             sent.refcount += 1         # hold: a concurrent exit_data must not
                                        # free the source handles mid-copy
             # a spilled source holds no device bytes; its reconciled host
@@ -608,21 +669,29 @@ class TargetExecutor:
                     self._reserve_capacity(dst, snap.nbytes(), tag=tag,
                                            protect=(name,))
                     dst_handles = self._alloc_specs(dst, specs, f"{tag}:{name}")
-                if src_spilled:
-                    futs = [pool.transfer_to(dst, dh, leaf, tag=f"{tag}:{name}")
-                            for dh, leaf in zip(dst_handles, spill_leaves)]
-                else:
-                    wires: List[Any] = [None] * len(specs)
-                    if compress_wire:
-                        from .compression import int8_wire_nbytes
-                        block = getattr(getattr(transport, "topology", None),
-                                        "block", 256)
-                        wires = [int8_wire_nbytes(math.prod(s.shape), block)
-                                 for s in specs]
-                    futs = [transport.sendrecv(pool, src, sh, dst, dh,
-                                               nbytes=w, tag=f"{tag}:{name}")
-                            for sh, dh, w in zip(src_handles, dst_handles,
-                                                 wires)]
+                try:
+                    if src_spilled:
+                        futs = [pool.transfer_to(dst, dh, leaf, tag=f"{tag}:{name}")
+                                for dh, leaf in zip(dst_handles, spill_leaves)]
+                    else:
+                        wires: List[Any] = [None] * len(specs)
+                        if compress_wire:
+                            from .compression import int8_wire_nbytes
+                            block = getattr(getattr(transport, "topology", None),
+                                            "block", 256)
+                            wires = [int8_wire_nbytes(math.prod(s.shape), block)
+                                     for s in specs]
+                        futs = [transport.sendrecv(pool, src, sh, dst, dh,
+                                                   nbytes=w, tag=f"{tag}:{name}")
+                                for sh, dh, w in zip(src_handles, dst_handles,
+                                                     wires)]
+                except BaseException:
+                    # a failed send (the funnel's fetch under a fault): free
+                    # the fresh buffers nothing owns yet
+                    if dent is None:
+                        for h in dst_handles:
+                            pool.free(dst, h)
+                    raise
                 if dent is None:
                     pool.present[dst].add(snap.peer_clone(dst_handles, futs))
                 else:
@@ -651,6 +720,7 @@ class TargetExecutor:
         exec_deps: List[Any] = []
 
         def _retain_ticketed(name: str, ent: PresentEntry) -> List[int]:
+            self._heal_locked(device, ent, tag or name)
             hs = list(ent.handles)
             retained.append(name)
             if name not in tickets:    # same name in two clauses reuses the
@@ -831,11 +901,16 @@ class TargetExecutor:
             for t in tickets.values():
                 t.close()              # idempotent; vital on the error path
             try:
-                for h in owned:
-                    pool.free(device, h)
-                if owned:
-                    pool.sync(device)
-                if retained:
-                    self.exit_data(device, *retained)
+                try:
+                    for h in owned:
+                        pool.free(device, h)
+                    if owned:
+                        pool.sync(device)
+                finally:
+                    # a stashed failure that the sync raises must not keep
+                    # the region's references (the reference's teardown
+                    # skips this release then, leaking the entries)
+                    if retained:
+                        self.exit_data(device, *retained)
             except DeviceStoppedError:
                 pass                       # device stopped mid-teardown

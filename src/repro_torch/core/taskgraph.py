@@ -16,12 +16,17 @@ Port of ``repro.core.taskgraph`` to the extent the main path needs it:
   and the peer fabric) and :class:`SloPlacement` (tail-first, with backlogs
   that persist across graphs and drain in wall-clock time).
 
+* Recovery: a region that fails with a
+  :class:`~.device.DeviceFailure` is re-placed, rerouted through the funnel
+  or retried in place, and a lost resident output is replayed from its
+  producer (its lineage); the result is bit-identical to the fault-free run.
+
 Left for later slices, each raising ``NotImplementedError`` naming its
-ROADMAP item: straggler hedging, checkpoints, failure recovery and lineage
-replay (item 11).
+ROADMAP item: straggler hedging (item 11b) and checkpoints (item 11c).
 """
 from __future__ import annotations
 
+import concurrent.futures as _cf
 import math
 import time
 from dataclasses import dataclass, field
@@ -460,7 +465,8 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
               policy: Any = None, out_name: str = "out",
               nowait: bool = True, resident: bool = False,
               peer: bool = False, transport: Optional[Any] = None,
-              tag: str = "graph", stragglers: Optional[Any] = None,
+              tag: str = "graph", max_retries: int = 8,
+              stragglers: Optional[Any] = None,
               checkpoint: Optional[Any] = None,
               resume_from: Optional[str] = None) -> Dict[str, Any]:
     """Run a :class:`TaskGraph`: waves of ready nodes, policy-placed.
@@ -482,16 +488,33 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
       host-mediated run's ``from_`` maps moved) and every pinned entry is
       released.
 
-    ``policy`` (default :class:`RoundRobin`) decides device placement per
-    ready node; placement affects traffic, never values.  Returns
-    ``{task: host value}`` for every node.  A region that fails with
-    :class:`~.device.DeviceFailure` is not recovered in this port yet.
+    **Recovery.**  A region that fails with a
+    :class:`~.device.DeviceFailure` (or binds an entry another region's heal
+    just dropped, a ``KeyError``) is recovered, up to ``max_retries``
+    attempts per node — failed recovery steps count too:
+
+    * a failed **EXEC** marks its device in the pool's health registry and
+      the active policy re-places the node over the surviving candidates;
+      in peer mode its output entry moves with it;
+    * a failed **SEND/RECV** reroutes the node's incoming peer edges through
+      the host funnel, on the same device;
+    * a failed **XFER** retries in place: resident inputs heal at the next
+      binding (:meth:`TargetExecutor._heal_locked`);
+    * a producer whose resident output is gone or unreadable is **replayed**
+      from its recorded dependencies (lineage) and the live producer map
+      re-pointed at the new copy.
+
+    Every retry re-runs the same kernel on the same declared operands, on a
+    device of the same card, so a recovered run is bit-identical to the
+    fault-free one.  Any other exception re-raises at once.  ``policy``
+    (default :class:`RoundRobin`) places each ready node; placement affects
+    traffic, never values.  Returns ``{task: host value}``.
     """
     if stragglers is not None:
-        raise NotImplementedError("run_graph(stragglers=...): ROADMAP item 11")
+        raise NotImplementedError("run_graph(stragglers=...): ROADMAP item 11b")
     if checkpoint is not None or resume_from is not None:
         raise NotImplementedError(
-            "run_graph(checkpoint=/resume_from=): ROADMAP item 11")
+            "run_graph(checkpoint=/resume_from=): ROADMAP item 11c")
     policy = resolve_policy(policy)
     pool = ex.pool
     if peer and transport is None:
@@ -508,33 +531,74 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
     results: Dict[str, Any] = {}
     # peer mode: every (device, entry) this run pinned — producer outputs and
     # their propagated copies — released at the end; ``producer`` maps a
-    # task to its output's current (device, entry)
+    # task to its output's current (device, entry), ``entry_owner`` is its
+    # inverse: the lineage index recovery replays from
     peer_entries: Dict[Tuple[int, str], bool] = {}
     producer: Dict[str, Tuple[int, str]] = {}
+    entry_owner: Dict[str, str] = {}
     funnel_cache: Dict[str, Any] = {}   # producer task -> fetched host value
 
-    def _join(futs: List[TargetFuture]) -> List[Dict[str, Any]]:
-        try:
-            return ex.drain(futs)
-        except DeviceFailure as err:
-            raise NotImplementedError(
-                "recovery from a failed region (re-place, reroute, replay): "
-                "ROADMAP item 11") from err
+    def _refresh_membership() -> None:
+        ctx.D = len(pool)
+        ctx.healthy = pool.health.healthy(ctx.D)
+
+    def _absorb() -> None:
+        pool.absorb_failures()
 
     def _entry_live(dev: int, entry: str) -> bool:
         return 0 <= dev < len(pool) and pool.present[dev].get(entry) is not None
 
+    def _replay_producer(name: str) -> None:
+        """Lineage replay: re-derive a lost resident output by re-running its
+        producer synchronously from its settled dependency values, on a
+        device the policy picks, and re-point the producer map.  Recursion
+        through :func:`_peer_rewrite` covers multi-level loss."""
+        t = graph.node(name)
+        old = producer.get(name)
+        if old is not None and old in peer_entries and _entry_live(*old):
+            ex.exit_data(old[0], old[1])   # drop the dead copy's pin
+        if old is not None:
+            peer_entries.pop(old, None)
+        ctx.replicas.pop(name, None)
+        _refresh_membership()
+        rtag = t.tag or f"{tag}:replay:{name}"
+        dev = policy.place(ctx, t, 0, rtag)
+        ctx.home[name] = dev
+        ctx.replicas.setdefault(name, set()).add(dev)
+        orig_maps = t.make_maps({d: results[d] for d in t.deps})
+        maps = _peer_rewrite(t, dev, orig_maps, rtag)
+        attempts = 0
+        while True:
+            try:
+                ex.target(t.kernel, dev, maps, nowait=False, tag=rtag)
+                return
+            except (DeviceFailure, KeyError):
+                _absorb()
+                attempts += 1
+                if attempts > max_retries:
+                    raise
+                # the failed attempt's heal may have dropped a replica it
+                # bound or the output entry itself: bind afresh (the
+                # reference retries the stale bindings, which then miss)
+                maps = _peer_rewrite(t, dev, orig_maps, rtag)
+
     def _fetch_task(name: str) -> Any:
-        dev, entry = producer[name]
-        if not _entry_live(dev, entry):
-            raise NotImplementedError(
-                f"the resident output of {name!r} is gone; rebuilding it "
-                f"from lineage is ROADMAP item 11")
-        try:
-            return ex.fetch_resident(dev, entry)
-        except DeviceFailure as err:
-            raise NotImplementedError(
-                "recovery from a failed fetch: ROADMAP item 11") from err
+        """fetch_resident with bounded retries, then a lineage replay."""
+        attempts = 0
+        while True:
+            dev, entry = producer[name]
+            try:
+                if not _entry_live(dev, entry):
+                    raise KeyError(entry)
+                return ex.fetch_resident(dev, entry)
+            except (DeviceFailure, KeyError):
+                _absorb()
+                attempts += 1
+                if attempts > max_retries:
+                    raise
+                # a fetch that keeps failing, or a vanished entry: the device
+                # copy is lost, rebuild it from lineage
+                _replay_producer(name)
 
     def _peer_rewrite(t: TaskNode, dev: int, maps: MapSpec,
                       region_tag: str) -> MapSpec:
@@ -548,9 +612,12 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
             # the device the ref was minted with
             src_dev, entry = producer[v.task]
             if not _entry_live(src_dev, entry):
-                raise NotImplementedError(
-                    f"the resident output of {v.task!r} is gone; rebuilding "
-                    f"it from lineage is ROADMAP item 11")
+                # the producer's copy is lost: rebuild it from lineage
+                if v.task in funnel_cache:
+                    new_to[k] = funnel_cache[v.task]
+                    continue
+                _replay_producer(v.task)
+                src_dev, entry = producer[v.task]
             if src_dev == dev or ((dev, entry) in peer_entries
                                   and _entry_live(dev, entry)):
                 pres[k] = entry
@@ -583,10 +650,13 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                 f"peer graph requires task {t.name!r} to declare "
                 f"from_[{out_name!r}] (its resident output shape)")
         entry = f"{tag}:{t.name}"
+        # re-entrant on retry: a node re-placed on a device that already
+        # holds the entry reuses it as its output buffer
         if not _entry_live(dev, entry):
             ex.alloc_resident(dev, entry, maps.from_[out_name], tag=f"{tag}:out")
         peer_entries[(dev, entry)] = True
         producer[t.name] = (dev, entry)
+        entry_owner[entry] = t.name
         ctx.out_bytes[t.name] = _value_nbytes(maps.from_[out_name])
         return MapSpec(to=new_to,
                        from_={n: v for n, v in maps.from_.items() if n != out_name},
@@ -596,6 +666,123 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                        present={**_alias_map(maps.present), **pres},
                        device_out={**_alias_map(maps.device_out),
                                    out_name: entry})
+
+    def _recover(rec: Dict[str, Any], err: BaseException) -> None:
+        """Make a failed node's record ready for re-dispatch: an EXEC fault
+        re-places it (the device is marked in the health registry), a
+        SEND/RECV fault reroutes its peer edges through the funnel on the
+        same device, an XFER fault retries in place."""
+        t = rec["t"]
+        # a KeyError: the region bound a replica another region's heal had
+        # just dropped — recovered like an XFER fault (edges rebuilt)
+        op = getattr(err, "op", "XFER_TO")
+        if op == "EXEC":
+            fdev = err.device if err.device is not None else rec["dev"]
+            pool.health.mark_failed(fdev)
+            _refresh_membership()
+            new_dev = policy.place(ctx, t, rec["index"], rec["tag"])
+            if not (0 <= new_dev < ctx.D):
+                raise ValueError(
+                    f"policy {policy.name!r} re-placed {t.name!r} on "
+                    f"device {new_dev} of {ctx.D}")
+            ctx.load[new_dev] = ctx.load.get(new_dev, 0) + 1
+            ctx.home[t.name] = new_dev
+            if peer:
+                entry = f"{tag}:{t.name}"
+                if new_dev != rec["dev"]:
+                    # abandon the unwritten output entry on the failed device
+                    if (rec["dev"], entry) in peer_entries:
+                        ex.exit_data(rec["dev"], entry)
+                        peer_entries.pop((rec["dev"], entry), None)
+                    ctx.replicas.setdefault(t.name, set()).discard(rec["dev"])
+                ctx.replicas.setdefault(t.name, set()).add(new_dev)
+                rec["maps"] = _peer_rewrite(t, new_dev, rec["orig_maps"],
+                                            rec["tag"])
+            rec["dev"] = new_dev
+        elif op in ("SEND", "RECV") and peer:
+            # a peer-fabric fault: this node's incoming edges go through the
+            # host funnel (route_edge's other wire), same device
+            funnel = HostFunnelTransport()
+            for entry in _alias_map(rec["maps"].present).values():
+                src_task = entry_owner.get(entry)
+                if src_task is None:
+                    continue               # a user-supplied present binding
+                src_dev, src_entry = producer[src_task]
+                if not _entry_live(src_dev, src_entry):
+                    _replay_producer(src_task)
+                    src_dev, src_entry = producer[src_task]
+                if src_dev != rec["dev"]:
+                    ex.propagate_resident(src_dev, rec["dev"], src_entry,
+                                          transport=funnel,
+                                          tag=f"{rec['tag']}:edge")
+                    peer_entries[(rec["dev"], src_entry)] = True
+        elif peer:
+            # an XFER fault, or a replica dropped by a heal: healable inputs
+            # re-send at the next binding; a dropped edge replica must be
+            # propagated again, so rebuild the node's maps
+            rec["maps"] = _peer_rewrite(t, rec["dev"], rec["orig_maps"],
+                                        rec["tag"])
+        # XFER faults outside peer mode: a plain retry (the heal re-sends
+        # damaged resident inputs at the next binding)
+
+    def _recover_or_raise(rec: Dict[str, Any], err: BaseException) -> None:
+        """Spend attempts until ``_recover`` succeeds; past ``max_retries``
+        the last error raises."""
+        _absorb()
+        while True:
+            rec["attempts"] += 1
+            if rec["attempts"] > max_retries:
+                raise err
+            try:
+                _recover(rec, err)
+                return
+            except (DeviceFailure, KeyError) as err2:
+                _absorb()
+                err = err2
+
+    def _run_recovering(rec: Dict[str, Any]) -> Dict[str, Any]:
+        """Synchronous dispatch (``nowait=False``) with the recovery loop."""
+        while True:
+            try:
+                return ex.target(rec["t"].kernel, rec["dev"], rec["maps"],
+                                 nowait=False, tag=rec["tag"])
+            except (DeviceFailure, KeyError) as err:
+                _recover_or_raise(rec, err)
+
+    def _join_recovering(records: List[Dict[str, Any]]) -> None:
+        """Join a wave's ``nowait`` regions, recovering failed ones.
+
+        Returns only once EVERY region, re-dispatched ones included, has
+        settled, so the pin releases after it never pull a buffer from under
+        a running region.  Outcomes land in each record's ``out``.
+        """
+        all_futs: List[TargetFuture] = [r["fut"] for r in records]
+        pending = list(records)
+        try:
+            while pending:
+                _cf.wait([r["fut"]._fut for r in pending])
+                nxt: List[Dict[str, Any]] = []
+                for rec in pending:
+                    err = rec["fut"]._fut.exception()
+                    if err is None:
+                        rec["out"] = rec["fut"]._fut.result()
+                        continue
+                    if not isinstance(err, (DeviceFailure, KeyError)):
+                        raise err
+                    _recover_or_raise(rec, err)
+                    rec["fut"] = ex.target(rec["t"].kernel, rec["dev"],
+                                           rec["maps"], nowait=True,
+                                           tag=rec["tag"])
+                    all_futs.append(rec["fut"])
+                    nxt.append(rec)
+                pending = nxt
+        finally:
+            # the error path too: settle everything still in flight before
+            # the caller's teardown releases pins
+            live = [f._fut for f in all_futs if not f._fut.done()]
+            if live:
+                _cf.wait(live)
+            ex.retire(all_futs)
 
     def _done(t: TaskNode, out: Dict[str, Any]) -> None:
         if peer:
@@ -615,12 +802,14 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
     for wave_idx, wave in enumerate(graph.waves()):
         ready = [graph.node(n) for n in wave]
         ctx.wave = wave_idx
+        # wave boundary: advance blacklist probation, re-read membership and
+        # health, so a blacklisted device leaves the candidate set
         pool.health.tick_wave()
-        ctx.D = D = len(pool)
-        ctx.healthy = pool.health.healthy(D)
+        _refresh_membership()
+        D = ctx.D
         ctx.load = {d: 0 for d in range(D)}
         entered: List[Tuple[int, str]] = []
-        futs: List[TargetFuture] = []
+        records: List[Dict[str, Any]] = []
         joined = False
         try:
             plans: List[Dict[str, Any]] = []
@@ -634,11 +823,12 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                 ctx.load[dev] = ctx.load.get(dev, 0) + 1
                 ctx.home[t.name] = dev
                 ctx.replicas.setdefault(t.name, set()).add(dev)
-                maps = t.make_maps({d: results[d] for d in t.deps})
-                if peer:
-                    maps = _peer_rewrite(t, dev, maps, region_tag)
+                orig_maps = t.make_maps({d: results[d] for d in t.deps})
+                maps = (_peer_rewrite(t, dev, orig_maps, region_tag)
+                        if peer else orig_maps)
                 plans.append({"t": t, "dev": dev, "tag": region_tag,
-                              "maps": maps})
+                              "maps": maps, "orig_maps": orig_maps,
+                              "index": j, "attempts": 0, "out": None})
             if resident:
                 # pin only values genuinely shared: a (device, name) whose
                 # plain ``to`` value is the same object across >=2 of the
@@ -662,17 +852,19 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                     except ValueError:
                         pass           # shape changed under this name: skip pin
             for p in plans:
-                t = p["t"]
                 if nowait:
-                    futs.append(ex.target(t.kernel, p["dev"], p["maps"],
-                                          nowait=True, tag=p["tag"]))
+                    p["fut"] = ex.target(p["t"].kernel, p["dev"], p["maps"],
+                                         nowait=True, tag=p["tag"])
+                    records.append(p)
                 else:
-                    _done(t, ex.target(t.kernel, p["dev"], p["maps"],
-                                       nowait=False, tag=p["tag"]))
-            if futs:
+                    _done(p["t"], _run_recovering(p))
+            if records:
+                # the join waits for EVERY region to settle, past failures
+                # and re-dispatches, before the pins below are released
                 joined = True
-                for p, out in zip(plans, _join(futs)):
-                    _done(p["t"], out)
+                _join_recovering(records)
+                for p in records:
+                    _done(p["t"], p["out"])
         except BaseException:
             if peer:
                 # failed run: nothing will fetch the resident outputs.  Safe
@@ -681,15 +873,16 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                 _release_peer_entries()
             raise
         finally:
-            if futs and not joined:
+            if records and not joined:
                 # a mid-dispatch failure: the already-launched regions must
                 # still be joined before their pins are released
                 try:
-                    ex.drain(futs)
+                    ex.drain([p["fut"] for p in records])
                 except BaseException:
                     pass               # the dispatch error propagates
             for dev, n in entered:      # wave boundary: release pins
-                ex.exit_data(dev, n)
+                if dev < len(pool):
+                    ex.exit_data(dev, n)
     if peer:
         # the host view: one fetch per task output, the bytes the
         # host-mediated run's from_ maps moved; then release every entry

@@ -33,13 +33,19 @@ new tensor that a writeback installs in the slot.  Nothing here writes a
 live slot in place: a SEND hands the slot's tensor itself to its RECV, which
 is only safe because slots are replaced, never written through.
 
-``PeerTransport(retries>0)`` and ``op_timeout_s`` (retry, backoff and the
-funnel fallback under injected faults) are ROADMAP item 11.
+``PeerTransport(retries>0)`` makes the fabric fault tolerant: a failed
+message is re-sent after a seeded backoff and, once the peer wire has failed
+``retries`` times, carried through the host funnel.  ``op_timeout_s`` (a
+hung message treated as a fault) is ROADMAP item 11b.
 """
 from __future__ import annotations
 
 import math
+import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .compression import int8_wire_nbytes, true_div
 from .costmodel import LinkModel
@@ -483,27 +489,79 @@ class PeerTransport(Transport):
     fabric hierarchical: per-pair edge pricing, compression-aware edge
     routing and rack-aware collectives.
 
-    ``retries > 0`` and ``op_timeout_s`` (re-send, backoff, funnel
-    fallback) are ROADMAP item 11 and raise.
+    ``retries > 0`` makes the fabric fault tolerant: each ``sendrecv``
+    waits for its RECV, and an injected :class:`~.device.DeviceFailure`
+    re-sends the message, falling back to the host funnel (fetch + re-send,
+    always available) once the peer wire has failed ``retries`` times.
+    Re-sends are paced by exponential backoff with seeded jitter:
+    ``backoff_base_s``·2^(attempt-1), capped at ``backoff_cap_s``, scaled by
+    a draw in [0.5, 1) from ``np.random.default_rng((seed, 0xB0FF))``, so the
+    same (seed, failure schedule) replays the same delays.  The delivered
+    value is the same on either wire, so collectives stay bit-identical
+    under injection.  ``retries=0`` keeps the fire-and-forget fabric.
+    ``op_timeout_s`` is ROADMAP item 11b and raises.
     """
 
     kind = "peer"
 
     def __init__(self, link: Optional[LinkModel] = None,
                  retries: int = 0, *, op_timeout_s: Optional[float] = None,
-                 topology=None) -> None:
-        if retries > 0 or op_timeout_s is not None:
+                 backoff_base_s: float = 1e-3, backoff_cap_s: float = 0.1,
+                 seed: int = 0, topology=None) -> None:
+        if op_timeout_s is not None:
             raise NotImplementedError(
-                "PeerTransport retries/op_timeout_s (re-send, backoff, "
-                "funnel fallback): ROADMAP item 11")
+                "PeerTransport(op_timeout_s=...): a hung message needs "
+                "StragglerTimeout, ROADMAP item 11b")
         self.link = link
         self.topology = topology
+        self.retries = retries
+        self.backoff_base_s = backoff_base_s
+        self.backoff_cap_s = backoff_cap_s
+        self._rng = np.random.default_rng((seed, 0xB0FF))
+        self._rng_lock = threading.Lock()
+        self.fallbacks = 0      # edges rerouted to the funnel
+        self.backoffs = 0       # backoff sleeps taken
+        self.backoff_s = 0.0    # seconds spent backing off
+
+    def _backoff(self, attempt: int) -> None:
+        """Sleep the attempt's backoff: exponential, capped, seeded jitter."""
+        with self._rng_lock:
+            u = float(self._rng.random())
+        delay = min(self.backoff_cap_s,
+                    self.backoff_base_s * (2.0 ** (attempt - 1)))
+        delay *= 0.5 + 0.5 * u
+        self.backoffs += 1
+        self.backoff_s += delay
+        time.sleep(delay)
 
     def sendrecv(self, pool, src: int, src_handle: int,
                  dst: int, dst_handle: int, *,
                  nbytes: Optional[int] = None, tag: str = ""):
-        return pool.peer_copy(src, src_handle, dst, dst_handle,
-                              nbytes=nbytes, tag=tag)
+        if self.retries <= 0:
+            return pool.peer_copy(src, src_handle, dst, dst_handle,
+                                  nbytes=nbytes, tag=tag)
+        from .device import DeviceFailure
+        attempt = 0
+        while True:
+            fut = pool.peer_copy(src, src_handle, dst, dst_handle,
+                                 nbytes=nbytes, tag=tag)
+            err = fut.exception()
+            if err is None:
+                return fut
+            if not isinstance(err, DeviceFailure):
+                raise err
+            # the pair stashed its failure on both endpoints; it is handled
+            # here
+            pool.absorb_failures()
+            attempt += 1
+            if attempt > self.retries:
+                # the peer wire is down for this edge: the host funnel
+                # delivers the same bytes over the paper's wire
+                self.fallbacks += 1
+                value = pool.transfer_from(src, src_handle, tag=f"{tag}:fallback")
+                return pool.transfer_to(dst, dst_handle, value,
+                                        tag=f"{tag}:fallback")
+            self._backoff(attempt)
 
     def edge_time(self, cost, src: int, dst: int, nbytes: int) -> float:
         """One message on the directed (src, dst) peer link — no funnel hop.

@@ -3,7 +3,7 @@ version, and the BOTS workloads and the LM server (dense, MoE, SSM and
 hybrid; its decode steps captured as CUDA graphs, against the eager route)
 launching them end to end; the peer fabric (SEND/RECV between the virtual
 devices' streams, the data-parallel fabrics) with the block-int8 wire
-kernel.
+kernel; and recovery under seeded faults (chaos sparselu).
 
 Every test here needs a card and is marked ``cuda``; whether a card is
 present is decided inside the fixture, so every worker collects the same
@@ -996,6 +996,34 @@ def test_placed_sparselu_keeps_k2_on_cp_async(cuda_device, policy):
     finally:
         rt.shutdown()
     assert torch.equal(tbl.assemble(res, K), ser)
+
+
+def test_chaos_sparselu_on_the_card_is_bit_identical(cuda_device):
+    """Sparselu K=4, B=32, D=4 over the peer fabric with every eligible op
+    failing at p = 0.2 (seeded): bit for bit the fault-free run on the card,
+    every bmod launch — re-executions included — on the cp_async path."""
+    from repro_torch.ft import FAULT_OPS, inject_flaky
+    K, B = 4, 32
+    mat = tbl._matrix(K, B)
+    got = {}
+    for p in (0.0, 0.2):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=4, comm_mode="direct"),
+                            table=tbl._make_table(K), device=cuda_device)
+        try:
+            if p:
+                inject_flaky(rt.pool, p=p, seed=1234, ops=FAULT_OPS)
+            before = (k2.launches.count, k2.path_launches["cp_async"].count)
+            res = tbl.wavefront(rt, mat, peer=True, max_retries=30)
+            launches = k2.launches.count - before[0]
+            assert launches >= sum(m * m for m in range(K))
+            assert k2.path_launches["cp_async"].count - before[1] == launches
+            faults = sum(getattr(d, "failures", 0) for d in rt.pool.devices)
+            assert len(rt.pool.health.blacklist) <= faults
+        finally:
+            rt.shutdown()
+        got[p] = (tbl.assemble(res, K), faults)
+    assert got[0.2][1] > 0
+    assert torch.equal(got[0.2][0], got[0.0][0])
 
 
 def test_capped_sparselu_equals_uncapped_on_the_card(cuda_device):

@@ -359,9 +359,13 @@ def test_gather_and_scratch_are_freed():
 
 
 def test_unported_transport_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.PeerTransport(retries=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    # retries (item 11a) construct with the reference's defaults; the op
+    # timeout needs StragglerTimeout and still raises (item 11b)
+    tr, ref = T.PeerTransport(retries=2), J.PeerTransport(retries=2)
+    assert (tr.retries, tr.backoff_base_s, tr.backoff_cap_s) == \
+        (ref.retries, ref.backoff_base_s, ref.backoff_cap_s)
+    assert (tr.fallbacks, tr.backoffs, tr.backoff_s) == (0, 0, 0.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
         T.PeerTransport(op_timeout_s=0.1)
 
 

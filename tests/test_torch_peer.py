@@ -151,8 +151,15 @@ def test_dp_step_matches_reference_and_is_bit_identical_across_fabrics(n):
 
 
 def test_runtime_options_left_for_later_items_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        _runtime(T, None, n_virtual=2, comm_mode="direct", transport_retries=2)
+    # transport retries (item 11a) wire into the direct fabric's transport
+    rt = _runtime(T, None, n_virtual=2, comm_mode="direct", transport_retries=2,
+                  transport_backoff_seed=5)
+    try:
+        assert isinstance(rt.transport, T.PeerTransport)
+        assert rt.transport.retries == 2
+        assert rt.transport.backoff_base_s == rt.cfg.transport_backoff_base_s
+    finally:
+        rt.shutdown()
     rt = _runtime(T, None, n_virtual=2, device_capacity_bytes=1)
     try:   # capacity (ROADMAP item 10) is ported: each table takes the cap
         assert [t.capacity_bytes for t in rt.pool.present] == [1, 1]
@@ -343,24 +350,37 @@ def test_peer_graph_misuse_and_failure_release_entries():
 
 
 def test_peer_graph_device_failure_is_left_to_item_11():
-    pool, ex = _ex_pool(T)
-    try:
-        spec = T.TensorSpec((2, 2), torch.float32)
+    """A kernel that always raises DeviceFailure: recovery re-places the
+    node until ``max_retries`` is spent, then the failure surfaces and every
+    present table is empty — in both packages."""
+    for pkg in (J, T):
+        pool, ex = _ex_pool(pkg)
+        try:
+            spec = (T.TensorSpec((2, 2), torch.float32) if pkg is T
+                    else jax.ShapeDtypeStruct((2, 2), jnp.float32))
+            calls = []
 
-        def fail(x):
-            raise T.DeviceFailure("injected", device=1)
+            def fail(x, pkg=pkg):
+                calls.append(1)
+                raise pkg.DeviceFailure("injected", device=1)
 
-        pool.table.register("fail", fail)
-        tasks = [T.DagTask("a", "gen", (), lambda deps: T.MapSpec(
-                     to={"x": torch.eye(2)}, from_={"out": spec})),
-                 T.DagTask("b", "fail", ("a",), lambda deps: T.MapSpec(
-                     to={"x": deps["a"]}, from_={"out": spec}))]
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            T.wavefront_offload(ex, tasks, nowait=True, peer=True)
-        for d in range(2):
-            assert len(pool.present[d]) == 0
-    finally:
-        pool.stop_all()
+            pool.table.register("fail", fail)
+            tasks = [pkg.DagTask("a", "gen", (), lambda deps: pkg.MapSpec(
+                         to={"x": _arr(pkg, np.eye(2, dtype=np.float32))},
+                         from_={"out": spec})),
+                     pkg.DagTask("b", "fail", ("a",), lambda deps: pkg.MapSpec(
+                         to={"x": deps["a"]}, from_={"out": spec}))]
+            with pytest.raises(pkg.DeviceFailure, match="injected"):
+                pkg.wavefront_offload(ex, tasks, nowait=True, peer=True,
+                                      max_retries=3)
+            assert len(calls) == 4             # the first try and 3 retries
+            assert pool.health.blacklist == {1}
+            pool.sync()
+            for d in range(2):
+                assert len(pool.present[d]) == 0
+                assert pool.devices[d].store.live_handles() == []
+        finally:
+            pool.stop_all()
 
 
 @pytest.mark.parametrize("topo", [None, (2, 2)], ids=["flat", "2x2"])

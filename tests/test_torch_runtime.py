@@ -120,9 +120,11 @@ def test_unported_options_raise_not_implemented():
                           device="cpu")
     assert T.wavefront_offload(rt.ex, [], peer=True) == {}
     rt.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct",
-                                         transport_retries=1), device="cpu")
+    # transport retries (ROADMAP item 11a) are ported
+    rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct",
+                                          transport_retries=1), device="cpu")
+    assert rt.transport.retries == 1
+    rt.shutdown()
     # placement and capacity (ROADMAP item 10) are ported: a capped runtime
     # reports its budget per device
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, device_capacity_bytes=1),
@@ -134,7 +136,7 @@ def test_unported_options_raise_not_implemented():
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2), table=_table(T),
                           device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
             T.wavefront_offload(rt.ex, [], peer=True, stragglers=object())
         assert T.wavefront_offload(rt.ex, [], policy="heft") == {}
         assert isinstance(T.resolve_policy("heft"), T.HeftPlacement)
