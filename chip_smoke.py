@@ -68,7 +68,15 @@ runs, printing one JSON line per phase:
    each strip through ``with_retry`` (8 K1 launches, the serial image);
    the DP fabric with transport retries under SEND/RECV faults at p = 0.2
    (the steps' parameters bit for bit the host-mediated run's) and the
-   2 x 2 mean with a dead rack leader; then BOTS fib(21) (``recursive_offload``, one
+   2 x 2 mean with a dead rack leader; then stragglers: K=16 host-mediated
+   and over the peer fabric with device 0 stalling a quarter of its EXECs
+   for 50 ms, once without and once with a ``StragglerDetector`` (hedged
+   duplicates; every loser's records struck), K=16 host-mediated under a
+   0.25 s command deadline with 0.5 s EXEC hangs at p = 0.01, K=5 over the
+   peer fabric with 0.2 s SEND hangs at p = 0.2 under a 0.05 s transport op
+   timeout, and mandelbrot 4600² at D=8 with device 3 stalling every EXEC
+   for 0.2 s, with and without ``offload_strips(speculate=True)``: each
+   equal to the serial run bit for bit; then BOTS fib(21) (``recursive_offload``, one
    busy-loop kernel launch per leaf) and alignment (128 queries x 32
    references, the bank resident, query strips) on 8 virtual devices, each
    equal to its serial run bit for bit, after the busy-loop kernel against
@@ -134,6 +142,7 @@ failed phase, and when no card is present.
 """
 from __future__ import annotations
 
+import collections
 import glob
 import json
 import os
@@ -190,6 +199,15 @@ FAULT_RETRIES = 30                      # run_graph(max_retries=...) under chaos
 FAULT_POLICIES = ("round-robin", "locality", "heft-comm")
 DEAD_DEVICE = 2                         # mandelbrot: fails every EXEC
 DP_FAULT_P = 0.2                        # DP fabric: SEND/RECV faults
+# stragglers (repro_torch.ft, seed FAULT_SEED): an intermittently slow
+# device under hedging, hung EXECs under a command deadline, hung SENDs
+# under a transport op timeout, and a slow mandelbrot device under
+# speculative strips
+SLOW_DEVICE, SLOW_P, SLOW_S = 0, 0.25, 0.05
+HEDGE = {"k": 3.0, "grace_s": 0.02, "poll_s": 0.005, "max_hedges": 512}
+DEADLINE_S, HANG_P, HANG_S = 0.25, 0.01, 0.5
+OP_TIMEOUT_S, SEND_HANG_P, SEND_HANG_S = 0.05, 0.2, 0.2
+SPEC_DEVICE, SPEC_SLOW_S = 3, 0.2
 Q8_RAGGED = (1, 255, 256, 257, 1000003) # wire kernel lengths off the 256-value block
 BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (64, 64, 64), (200, 72, 136))   # (M, N, K)
 # the serve phase's attention shapes (minitron-4b: 8 kv heads, r = 3, d = 128)
@@ -1215,7 +1233,7 @@ def phase_mandelbrot(torch):
         wall = time.perf_counter() - t0
         launches = k1.launches.count
         paths = _path_counts(k1)
-        s = rt.cost.summary()
+        s = {**rt.cost.summary(), "wall_s": wall}
         ser = bm.serial(rt, rows, n)
         busy = device_busy(torch, lambda: bm.strips(rt, rows, n, nowait=True))
     finally:
@@ -1264,6 +1282,7 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int, fabric: str = "host-me
         launches = k2.launches.count
         paths = _path_counts(k2)
         s = rt.cost.summary()
+        kernel_s = {k: rt.cost.kernel_time(k) for k in ("lu0", "fwd", "bdiv", "bmod")}
         ser = bl.serial(rt, mat)
         busy = device_busy(torch, lambda: bl.wavefront(rt, mat, peer=peer))
     finally:
@@ -1286,7 +1305,7 @@ def _sparselu_once(torch, K: int, B: int, n_devices: int, fabric: str = "host-me
            "modeled_makespan_s": s["makespan_s"], "compute_s": s["compute_s"],
            "bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
            "bytes_peer": s["bytes_peer"], "bytes_peer_cross_rack": s["bytes_peer_cross_rack"],
-           "profiled": busy}
+           "kernel_time_s": kernel_s, "profiled": busy}
     emit(row)
     if launches != expect:
         fail(f"bmod launched {launches} times in the wavefront, expected {expect}")
@@ -1875,6 +1894,247 @@ def phase_fault_recovery(torch, ser, lus: dict, lu_rows: list, placed_rows: list
     if not (hier_equal and tr.fallbacks > 0):
         fail(f"hierarchical mean with a dead rack leader: bitwise {hier_equal}, "
              f"{tr.fallbacks} fallbacks")
+    return k1_launches, k1_paths, rows
+
+
+def _stalls(pool) -> int:
+    return sum(getattr(d, "stalls", 0) for d in pool.devices)
+
+
+def _hedged_sparselu(torch, mat, ser, peer: bool, baseline):
+    """One K=16 sparselu wavefront on the card with device ``SLOW_DEVICE``
+    stalling ``SLOW_P`` of its EXECs for ``SLOW_S`` (seed ``FAULT_SEED``),
+    hedged by a ``StragglerDetector`` when ``baseline`` (seconds per kernel)
+    is given.  K2's counts are set to 0 just before it and read just after.
+    Returns the run's numbers; fails unless it equals the serial kernel bit
+    for bit, every loser's compute record was struck and every K2 launch is
+    on cp_async."""
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.ft import FlakyDevice, StragglerDetector
+    from repro_torch.kernels.block_lu import block_lu as k2
+    K, B = mat.shape[0], mat.shape[2]
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES,
+                                      comm_mode="direct" if peer else "host-mediated"),
+                        table=bl._make_table(K), device="cuda")
+    try:
+        rt.pool.devices[SLOW_DEVICE] = FlakyDevice(
+            rt.pool.devices[SLOW_DEVICE], p=SLOW_P, seed=FAULT_SEED, ops=("EXEC",),
+            mode="slow", slow_s=SLOW_S)
+        det = (StragglerDetector(rt.cost, baseline=baseline, **HEDGE)
+               if baseline is not None else None)
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = bl.wavefront(rt, mat, peer=peer, stragglers=det)
+        wall = time.perf_counter() - t0
+        launches, paths = k2.launches.count, _path_counts(k2)
+        records = len(rt.cost.compute)
+        stalls = _stalls(rt.pool)
+    finally:
+        rt.shutdown()
+    n_tasks = len(bl._build_dag(mat, K, B))
+    diff = float((bl.assemble(res, K) - ser).abs().max())
+    out = {"wall_s": wall, "stalls": stalls, "compute_records": records,
+           "bmod_launches": launches, "bmod_path_launches": paths,
+           "bmod_extra_launches": launches - sum(m * m for m in range(K)),
+           "max_abs_diff_vs_serial": diff}
+    if det is not None:
+        rep = det.report()
+        out.update({k: rep[k] for k in ("hedges_launched", "primary_wins",
+                                        "hedge_wins", "hedge_failures")})
+        out["hedged_kernels"] = dict(collections.Counter(r["kernel"] for r in rep["records"]))
+    what = f"hedged sparselu {'peer' if peer else 'host-mediated'}" + \
+        (" with a detector" if det is not None else "")
+    if diff != 0.0:
+        fail(f"{what} differs from the serial kernel by {diff}")
+    if records != n_tasks:
+        fail(f"{what}: {records} compute records for {n_tasks} tasks (a loser not struck)")
+    if launches < sum(m * m for m in range(K)) or paths["cp_async"] != launches:
+        fail(f"{what}: bmod launched {launches} times ({paths}), every one on cp_async")
+    return out
+
+
+def phase_stragglers(torch, ser, lu_rows: list, fault_rows: list, mandel_img,
+                     mandel_s: dict):
+    """Stragglers and deadlines on the card (``repro_torch.ft``, seed
+    ``FAULT_SEED``):
+
+    (a) sparselu K=16, B=128, D=4, round-robin, host-mediated and over the
+        peer fabric, device ``SLOW_DEVICE`` stalling ``SLOW_P`` of its EXECs
+        for ``SLOW_S``: once without and once with a ``StragglerDetector``
+        (``HEDGE``, baseline the fault-free run's seconds per kernel); each
+        equal to the serial kernel bit for bit, one compute record per task
+        (every loser struck), at least one hedge;
+    (b) the same K=16 host-mediated under ``command_deadline_s=DEADLINE_S``
+        with every device hanging ``HANG_P`` of its EXECs for ``HANG_S``:
+        equal to the serial kernel, at least one EXEC deadline blown, and a
+        final ``pool.sync()`` that raises nothing;
+    (c) K=5, B=96 over the peer fabric with every device hanging
+        ``SEND_HANG_P`` of its SENDs for ``SEND_HANG_S``, under
+        ``transport_retries=1`` and ``transport_op_timeout_s=OP_TIMEOUT_S``:
+        equal to the serial kernel, at least one op timeout, and a final
+        ``pool.sync()`` after the hangs that raises nothing;
+    (d) mandelbrot 4600² at D=8 with device ``SPEC_DEVICE`` stalling every
+        EXEC for ``SPEC_SLOW_S``, without and with
+        ``offload_strips(speculate=True)``: the serial image bit for bit,
+        at least one strip respawned, every K1 launch chunked, and the
+        speculative run's modeled traffic (transfers, compute tags and the
+        funnel's modeled time) equal to the run without speculation's.
+
+    The walls of the fault-free runs in this process ride along.  Returns
+    the phase's K1 launches and paths, and its rows (their K2 launches join
+    the kernel line's)."""
+    from repro_torch.bots import mandelbrot as bm
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    from repro_torch.ft import FlakyDevice, inject_flaky
+    from repro_torch.kernels.block_lu import block_lu as k2
+    from repro_torch.kernels.mandelbrot import mandelbrot as k1
+    mat = bl._matrix(LU_K, LU_B)
+    rows = []
+    # (a) hedging; lu_rows[0] is the fault-free host-mediated run, lu_rows[1]
+    # the fault-free run over the peer fabric
+    for peer, free in ((False, lu_rows[0]), (True, lu_rows[1])):
+        plain = _hedged_sparselu(torch, mat, ser, peer, None)
+        hedged = _hedged_sparselu(torch, mat, ser, peer, free["kernel_time_s"])
+        row = {"phase": "stragglers", "case": "hedged_sparselu",
+               "fabric": "peer" if peer else "host-mediated", "K": LU_K, "B": LU_B,
+               "devices": LU_DEVICES, "slow_device": SLOW_DEVICE, "p": SLOW_P,
+               "slow_s": SLOW_S, "seed": FAULT_SEED, "detector": HEDGE,
+               "baseline_s": free["kernel_time_s"],
+               "fault_free_wall_s": free["wall_s"], "unhedged": plain, "hedged": hedged,
+               "wall_ratio_unhedged": plain["wall_s"] / free["wall_s"],
+               "wall_ratio_hedged": hedged["wall_s"] / free["wall_s"]}
+        emit(row)
+        rows += [plain, hedged]
+        if hedged["hedges_launched"] < 1:
+            fail(f"hedged sparselu {row['fabric']}: no hedge launched ({hedged})")
+    # (b) command deadlines
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES, command_deadline_s=DEADLINE_S),
+                        table=bl._make_table(LU_K), device="cuda")
+    try:
+        inject_flaky(rt.pool, p=HANG_P, seed=FAULT_SEED, ops=("EXEC",), mode="hang",
+                     hang_s=HANG_S)
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = bl.wavefront(rt, mat, max_retries=FAULT_RETRIES)
+        wall = time.perf_counter() - t0
+        time.sleep(HANG_S)
+        rt.pool.sync()                   # the hung EXECs' late failures: none surfaces
+        # read after the sync: EXECs that missed their deadline launch K2 late
+        launches, paths = k2.launches.count, _path_counts(k2)
+        timeouts = dict(rt.pool.straggler_timeouts)
+        hangs = _faults_by_op(rt.pool)
+        blacklist = sorted(rt.pool.health.blacklist)
+        execs = sum(1 for c in rt.pool.trace if c.op == "EXEC")
+    finally:
+        rt.shutdown()
+    diff = float((bl.assemble(res, LU_K) - ser).abs().max())
+    row = {"phase": "stragglers", "case": "deadline_sparselu", "fabric": "host-mediated",
+           "K": LU_K, "B": LU_B, "devices": LU_DEVICES, "deadline_s": DEADLINE_S,
+           "p": HANG_P, "hang_s": HANG_S, "seed": FAULT_SEED, "hangs_by_op": hangs,
+           "straggler_timeouts": timeouts, "blacklist": blacklist,
+           "reexecuted_regions": execs - len(bl._build_dag(mat, LU_K, LU_B)),
+           "wall_s": wall, "fault_free_wall_s": lu_rows[0]["wall_s"],
+           "wall_ratio": wall / lu_rows[0]["wall_s"], "bmod_launches": launches,
+           "bmod_path_launches": paths, "max_abs_diff_vs_serial": diff}
+    emit(row)
+    rows.append(row)
+    if diff != 0.0 or timeouts.get("EXEC", 0) < 1:
+        fail(f"deadline sparselu: diff {diff}, straggler timeouts {timeouts}")
+    if launches < sum(m * m for m in range(LU_K)) or paths["cp_async"] != launches:
+        fail(f"deadline sparselu: bmod launched {launches} times ({paths})")
+    # (c) transport op timeouts on the peer fabric
+    K5, B5 = LU_LARGE
+    mat5 = bl._matrix(K5, B5)
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES, comm_mode="direct",
+                                      transport_retries=1,
+                                      transport_op_timeout_s=OP_TIMEOUT_S),
+                        table=bl._make_table(K5), device="cuda")
+    try:
+        ser5 = bl.serial(rt, mat5)
+        inject_flaky(rt.pool, p=SEND_HANG_P, seed=FAULT_SEED, ops=("SEND",), mode="hang",
+                     hang_s=SEND_HANG_S)
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = bl.wavefront(rt, mat5, peer=True, max_retries=FAULT_RETRIES)
+        wall = time.perf_counter() - t0
+        launches, paths = k2.launches.count, _path_counts(k2)
+        time.sleep(SEND_HANG_S)
+        rt.pool.sync()                   # the timed-out pairs settled: nothing surfaces
+        s = rt.cost.summary()
+        hangs = _faults_by_op(rt.pool)
+        tr = rt.transport
+    finally:
+        rt.shutdown()
+    dead = next(r for r in fault_rows if r.get("case") == "dead_peer_wire")
+    diff = float((bl.assemble(res, K5) - ser5).abs().max())
+    row = {"phase": "stragglers", "case": "op_timeout_sparselu", "fabric": "peer",
+           "K": K5, "B": B5, "devices": LU_DEVICES, "p": SEND_HANG_P,
+           "hang_s": SEND_HANG_S, "op_timeout_s": OP_TIMEOUT_S, "transport_retries": 1,
+           "seed": FAULT_SEED, "hangs_by_op": hangs, "timeouts": tr.timeouts,
+           "fallbacks": tr.fallbacks, "backoffs": tr.backoffs, "backoff_s": tr.backoff_s,
+           "host_bytes": s["bytes_to"] + s["bytes_from"],
+           "fault_free_host_bytes": dead["fault_free_host_bytes"],
+           "bytes_peer": s["bytes_peer"], "wall_s": wall, "bmod_launches": launches,
+           "bmod_path_launches": paths, "max_abs_diff_vs_serial": diff}
+    emit(row)
+    rows.append(row)
+    if diff != 0.0 or tr.timeouts < 1:
+        fail(f"op-timeout sparselu: diff {diff}, {tr.timeouts} timeouts")
+    if launches < sum(m * m for m in range(K5)) or paths["cp_async"] != launches:
+        fail(f"op-timeout sparselu: bmod launched {launches} times ({paths})")
+    # (d) speculative strips
+    n = MANDEL_SIZE
+    spec = {}
+    for speculate in (False, True):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=MANDEL_DEVICES),
+                            table=bm._make_table(n, n, MANDEL_ITER), device="cuda")
+        try:
+            rt.pool.devices[SPEC_DEVICE] = FlakyDevice(
+                rt.pool.devices[SPEC_DEVICE], p=1.0, seed=FAULT_SEED, ops=("EXEC",),
+                mode="slow", slow_s=SPEC_SLOW_S)
+            _reset_counts(k1)
+            t0 = time.perf_counter()
+            img = bm.strips(rt, bm.all_rows(n), n, nowait=True, speculate=speculate)
+            wall = time.perf_counter() - t0
+            rt.pool.sync()
+            cost = rt.cost
+            spec[speculate] = {
+                "wall_s": wall, "kernel_launches": k1.launches.count,
+                "kernel_path_launches": _path_counts(k1),
+                "respawned": sum(1 for c in rt.pool.trace
+                                 if c.op == "EXEC" and ":spec[" in c.tag),
+                "image_equal_serial": bool(torch.equal(img, mandel_img)),
+                "transfers": sorted((t.direction, t.nbytes) for t in cost.transfers),
+                "compute_tags": sorted(c.tag for c in cost.compute),
+                "comm_s": cost.comm_time(), "modeled_makespan_s": cost.makespan(),
+                "compute_s": cost.compute_time()}
+        finally:
+            rt.shutdown()
+    plain, sp = spec[False], spec[True]
+    same_model = all(plain[k] == sp[k] for k in ("transfers", "compute_tags", "comm_s"))
+    emit({"phase": "stragglers", "case": "speculative_strips", "size": n,
+          "devices": MANDEL_DEVICES, "slow_device": SPEC_DEVICE, "slow_s": SPEC_SLOW_S,
+          "fault_free_wall_s": mandel_s["wall_s"],
+          "model_equal_without_speculation": same_model,
+          **{("speculative" if k else "plain"): {x: v for x, v in r.items()
+                                                 if x not in ("transfers", "compute_tags")}
+             for k, r in spec.items()}})
+    for k, r in spec.items():
+        if (not r["image_equal_serial"]
+                or r["kernel_path_launches"].get("chunked", 0) != r["kernel_launches"]):
+            fail(f"mandelbrot (speculate={k}) with a slow device: image equal "
+                 f"{r['image_equal_serial']}, K1 launches {r['kernel_path_launches']}")
+    if sp["respawned"] < 1 or plain["kernel_launches"] != MANDEL_DEVICES:
+        fail(f"speculative strips: {sp['respawned']} respawned, "
+             f"{plain['kernel_launches']} launches without speculation")
+    if not same_model:
+        fail("speculative strips: the modeled traffic differs from the run without "
+             "speculation")
+    k1_launches = plain["kernel_launches"] + sp["kernel_launches"]
+    k1_paths = {p: plain["kernel_path_launches"].get(p, 0) + sp["kernel_path_launches"].get(p, 0)
+                for p in {*plain["kernel_path_launches"], *sp["kernel_path_launches"]}}
     return k1_launches, k1_paths, rows
 
 
@@ -2576,11 +2836,15 @@ def main() -> int:
         torch, lu_rows[1], mandel_img, mandel_s)
     fault_k1, fault_paths, fault_rows = phase_fault_recovery(
         torch, lu_ser, lu_placed, lu_rows, placed_rows, mandel_img, dp_ref)
-    del mandel_img, lu_placed
-    for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths)):
+    del lu_placed
+    strag_k1, strag_paths, strag_rows = phase_stragglers(torch, lu_ser, lu_rows, fault_rows,
+                                                         mandel_img, mandel_s)
+    del mandel_img
+    for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths),
+                            (strag_k1, strag_paths)):
         k1_launches += launches
         k1_paths = {p: k1_paths.get(p, 0) + paths.get(p, 0) for p in {*k1_paths, *paths}}
-    lu_rows += placed_rows + fault_rows
+    lu_rows += placed_rows + fault_rows + strag_rows
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
                 for p in lu_rows[0]["bmod_path_launches"]}

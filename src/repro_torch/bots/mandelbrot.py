@@ -38,15 +38,17 @@ def all_rows(height: int) -> torch.Tensor:
 
 
 def strips(rt: ClusterRuntime, rows: torch.Tensor, width: int, *,
-           nowait: bool = False, policy: Any = None) -> torch.Tensor:
+           nowait: bool = False, policy: Any = None,
+           speculate: bool = False) -> torch.Tensor:
     """The offloaded program: one strip of ``rows`` per device, placed by
-    ``policy`` (default round-robin)."""
+    ``policy`` (default round-robin); ``speculate`` re-dispatches the strips
+    still running once one has landed (:func:`~..core.offload_strips`)."""
     def make_maps(start, length):
         return MapSpec(to={"rows": sec(rows, start, length)},
                        from_={"out": TensorSpec((length, width), torch.int32)})
 
     return offload_strips(rt.ex, "mandel_strip", rows.shape[0], make_maps,
-                          nowait=nowait, policy=policy)
+                          nowait=nowait, policy=policy, speculate=speculate)
 
 
 def serial(rt: ClusterRuntime, rows: torch.Tensor, width: int) -> torch.Tensor:

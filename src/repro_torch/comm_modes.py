@@ -20,17 +20,23 @@ same numbers), the same runtime calls and the same byte columns.
 
 Every function takes ``device`` (the card unless the caller asks for the
 CPU) and returns its rows, plus the values its callers hold against each
-other.  :func:`modes` and :func:`dps` also take ``inject=(p, seed)``: every
-device of every runtime fails SEND/RECV with probability ``p`` on a schedule
-keyed by ``seed`` (``benchmarks/comm_modes.py --inject-p``), direct-mode
-runtimes retry each message ``CHAOS_RETRIES`` times before the funnel, and
-each row reports its injected faults by op and the transport's
-``fallbacks``, ``backoffs`` and ``backoff_s``.  The values are the
-fault-free run's either way.
+other.  :func:`modes` and :func:`dps` also take ``inject=(p, seed)`` or
+``inject=(p, seed, hang_p, slow_ms)`` (an :class:`Inject`): every device of
+every runtime fails SEND/RECV with probability ``p`` on a schedule keyed by
+``seed`` (``benchmarks/comm_modes.py --inject-p``), and direct-mode runtimes
+retry each message ``CHAOS_RETRIES`` times before the funnel.  ``hang_p``
+hangs SEND/RECV for ``HANG_S`` instead, under a command deadline of
+``HANG_DEADLINE_S`` and a transport op timeout of ``HANG_OP_TIMEOUT_S``
+(``--hang-p``); ``slow_ms`` stalls EXEC commands with probability ``SLOW_P``
+(``--slow-ms``).  Each row reports its injected faults by op and the
+transport's ``fallbacks``, ``backoffs`` and ``backoff_s``
+(:func:`fault_report`), and under hangs or stalls the deadline trips, stalls
+and op timeouts (:func:`hedge_report`).  The values are the fault-free run's
+either way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +45,29 @@ from ._device import DeviceLike
 from .core import (ClusterRuntime, DevicePool, KernelTable, PeerTransport,
                    RuntimeConfig, TensorSpec, Topology)
 from .core.costmodel import PAPER_ETHERNET
-from .ft import inject_flaky
+from .ft import FlakyDevice, inject_flaky
 from .optim import AdamW, AdamWConfig
 
 #: Transport retries a direct-mode runtime gets under ``inject``.
 CHAOS_RETRIES = 3
+#: Under ``hang_p``: the pool's command deadline (a backstop for true
+#: wedges, generous so a first call's warm-up never trips it), the
+#: transport's op timeout, and how long a hung SEND/RECV sleeps.
+HANG_DEADLINE_S = 10.0
+HANG_OP_TIMEOUT_S = 0.1
+HANG_S = 0.2
+#: Under ``slow_ms``: the share of EXEC commands that stall.
+SLOW_P = 0.3
+
+
+class Inject(NamedTuple):
+    """Seeded chaos for a workload's runtimes (the reference's
+    ``--inject-p``, ``--inject-seed``, ``--hang-p`` and ``--slow-ms``)."""
+
+    p: float                 # SEND/RECV fail probability
+    seed: int
+    hang_p: float = 0.0      # SEND/RECV hang probability (seed + 1)
+    slow_ms: float = 0.0     # EXEC stall at SLOW_P (seed + 2)
 
 
 def mse_grads(params, batch):
@@ -84,25 +108,50 @@ def _row(s: Dict[str, float]) -> Dict[str, float]:
 
 
 def make_runtime(cfg: RuntimeConfig, device: DeviceLike,
-                 inject: Optional[Tuple[float, int]] = None) -> ClusterRuntime:
-    """A runtime over ``make_table()``; under ``inject=(p, seed)`` every
-    device fails SEND/RECV with probability ``p`` and a direct-mode runtime
-    retries each message before the funnel."""
-    if inject is not None and cfg.comm_mode == "direct":
+                 inject: Optional[Tuple[float, ...]] = None) -> ClusterRuntime:
+    """A runtime over ``make_table()`` under ``inject`` (an :class:`Inject`
+    or a tuple of its fields): every device fails SEND/RECV with probability
+    ``p``, hangs them with probability ``hang_p`` and stalls EXEC for
+    ``slow_ms``; a direct-mode runtime retries each failed or timed-out
+    message before the funnel."""
+    inj = None if inject is None else Inject(*inject)
+    if inj is not None and cfg.comm_mode == "direct" and (inj.p > 0 or inj.hang_p > 0):
         cfg.transport_retries = max(cfg.transport_retries, CHAOS_RETRIES)
+    if inj is not None and inj.hang_p > 0:
+        if cfg.command_deadline_s is None:
+            cfg.command_deadline_s = HANG_DEADLINE_S
+        if cfg.transport_op_timeout_s is None:
+            cfg.transport_op_timeout_s = HANG_OP_TIMEOUT_S
     rt = ClusterRuntime(cfg, table=make_table(), device=device)
-    if inject is not None:
-        inject_flaky(rt.pool, p=inject[0], seed=inject[1], ops=("SEND", "RECV"))
+    if inj is None:
+        return rt
+    if inj.p > 0:
+        inject_flaky(rt.pool, p=inj.p, seed=inj.seed, ops=("SEND", "RECV"))
+    if inj.hang_p > 0:
+        inject_flaky(rt.pool, p=inj.hang_p, seed=inj.seed + 1, ops=("SEND", "RECV"),
+                     mode="hang", hang_s=HANG_S)
+    if inj.slow_ms > 0:
+        inject_flaky(rt.pool, p=SLOW_P, seed=inj.seed + 2, ops=("EXEC",),
+                     mode="slow", slow_s=inj.slow_ms / 1e3)
     return rt
 
 
+def _layers(dev) -> Iterator[FlakyDevice]:
+    """The fault injectors wrapped around one device, outermost first."""
+    while isinstance(dev, FlakyDevice):
+        yield dev
+        dev = dev._inner
+
+
 def fault_report(rt: ClusterRuntime) -> Dict[str, Any]:
-    """Injected faults by op over a runtime's devices, and its transport's
-    fallbacks and backoffs (zero for a fault-free or host-mediated one)."""
+    """Injected faults by op over a runtime's devices (every injector
+    wrapped around each), and its transport's fallbacks and backoffs (zero
+    for a fault-free or host-mediated one)."""
     by_op: Dict[str, int] = {}
     for d in rt.pool.devices:
-        for op, n in getattr(d, "failures_by_op", {}).items():
-            by_op[op] = by_op.get(op, 0) + n
+        for layer in _layers(d):
+            for op, n in layer.failures_by_op.items():
+                by_op[op] = by_op.get(op, 0) + n
     tr = rt.transport
     return {"faults": sum(by_op.values()), "faults_by_op": by_op,
             "fallbacks": getattr(tr, "fallbacks", 0),
@@ -110,8 +159,33 @@ def fault_report(rt: ClusterRuntime) -> Dict[str, Any]:
             "backoff_s": getattr(tr, "backoff_s", 0.0)}
 
 
+def hedge_report(rt: ClusterRuntime) -> Dict[str, Any]:
+    """A runtime's straggler accounting: blown command deadlines by op,
+    stalls, and its transport's op timeouts, fallbacks and backoffs."""
+    tr = rt.transport
+    return {"straggler_timeouts": dict(rt.pool.straggler_timeouts),
+            "stalls": sum(layer.stalls for d in rt.pool.devices
+                          for layer in _layers(d)),
+            "transport_timeouts": getattr(tr, "timeouts", 0),
+            "transport_fallbacks": getattr(tr, "fallbacks", 0),
+            "transport_backoffs": getattr(tr, "backoffs", 0),
+            "transport_backoff_s": getattr(tr, "backoff_s", 0.0)}
+
+
+def _chaos_report(rt: ClusterRuntime, inject: Optional[Tuple[float, ...]]
+                  ) -> Dict[str, Any]:
+    """A row's chaos columns: none without ``inject``, the fault report, and
+    the straggler report under hangs or stalls."""
+    if inject is None:
+        return {}
+    inj = Inject(*inject)
+    if inj.hang_p > 0 or inj.slow_ms > 0:
+        return {**fault_report(rt), **hedge_report(rt)}
+    return fault_report(rt)
+
+
 def modes(d_model: int = 512, n_batch: int = 64, device_counts=(2, 4, 8), *,
-          device: DeviceLike = "cuda", inject: Optional[Tuple[float, int]] = None
+          device: DeviceLike = "cuda", inject: Optional[Tuple[float, ...]] = None
           ) -> Tuple[List[Dict], Dict[str, Any]]:
     """One ``data_parallel_grads`` per (mode, D); the rows and each mode's
     mean gradient at the largest D."""
@@ -130,7 +204,7 @@ def modes(d_model: int = 512, n_batch: int = 64, device_counts=(2, 4, 8), *,
             finally:
                 rt.shutdown()
             rows.append({"mode": mode, "devices": n, **_row(s),
-                         **(fault_report(rt) if inject is not None else {})})
+                         **_chaos_report(rt, inject)})
             if n == device_counts[-1]:
                 grads[mode] = g
     return rows, grads
@@ -138,7 +212,7 @@ def modes(d_model: int = 512, n_batch: int = 64, device_counts=(2, 4, 8), *,
 
 def dps(d_model: int = 256, n_batch: int = 16, n: int = 4, steps: int = 8,
         sync_every: int = 4, *, device: DeviceLike = "cuda",
-        inject: Optional[Tuple[float, int]] = None
+        inject: Optional[Tuple[float, ...]] = None
         ) -> Tuple[List[Dict], Dict[str, Any]]:
     """Gradient funnel + host AdamW, then ``data_parallel_step`` with
     host-mediated and direct syncs; the rows and each mode's parameters."""
@@ -158,7 +232,7 @@ def dps(d_model: int = 256, n_batch: int = 16, n: int = 4, steps: int = 8,
         rt.shutdown()
     rows.append({"update": "host (per-step grads)", "devices": n,
                  "steps": steps, **_row(s),
-                 **(fault_report(rt) if inject is not None else {})})
+                 **_chaos_report(rt, inject)})
     got["host"] = host_params
     for mode in ("host-mediated", "direct"):
         rt = make_runtime(RuntimeConfig(n_virtual=n, comm_mode=mode,
@@ -174,7 +248,7 @@ def dps(d_model: int = 256, n_batch: int = 16, n: int = 4, steps: int = 8,
         got[mode] = p
         rows.append({"update": f"device {mode} (sync/{sync_every})",
                      "devices": n, "steps": steps, **_row(s),
-                     **(fault_report(rt) if inject is not None else {})})
+                     **_chaos_report(rt, inject)})
     return rows, got
 
 

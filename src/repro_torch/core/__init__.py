@@ -14,12 +14,15 @@ Public API (counterparts of ``repro.core``):
                                direct), data-parallel fabric, cost model
   DeviceFailure / HealthRegistry   failures that run_graph and the peer
                                transport recover from (injection: repro_torch.ft)
+  StragglerTimeout             a blown command deadline or transport op
+                               timeout, recovered like any DeviceFailure
 """
 from .costmodel import (CostModel, DEFAULT_KERNEL_TIME_S, Event, LinkModel,
                         PAPER_ETHERNET, PeerRecord, PlacementRecord,
                         TimelineSpan)
 from .device import (Command, DeviceFailure, DevicePool, DeviceStoppedError,
-                     HealthRegistry, NodeDevice, SLOT_STREAM, StreamTicket)
+                     HealthRegistry, NodeDevice, SLOT_STREAM, StragglerTimeout,
+                     StreamTicket)
 from .kernel_table import GLOBAL_KERNEL_TABLE, KernelTable, kernel
 from .mediary import (RESERVED, HostMirror, MediaryStore, PresentEntry,
                       PresentTable, TensorSpec)
@@ -38,7 +41,8 @@ __all__ = [
     "MediaryStore", "HostMirror", "RESERVED", "PresentTable", "PresentEntry",
     "TensorSpec",
     "NodeDevice", "DevicePool", "Command", "DeviceStoppedError",
-    "DeviceFailure", "HealthRegistry", "SLOT_STREAM", "StreamTicket",
+    "DeviceFailure", "HealthRegistry", "SLOT_STREAM", "StragglerTimeout",
+    "StreamTicket",
     "MapSpec", "Section", "sec", "TargetExecutor", "TargetFuture",
     "strip_partition", "offload_strips", "recursive_offload",
     "wavefront_offload", "DagTask", "PeerRef",

@@ -30,8 +30,11 @@ its error for the device's next synchronizing command;
 :meth:`DevicePool.absorb_failures` clears the stashed
 :class:`DeviceFailure` errors that recovery handles itself.
 
-Left for later slices: command deadlines (ROADMAP item 11b) and elastic
-membership (item 11c).
+``DevicePool(deadline_s=...)`` bounds the host's wait on each value-producing
+command (EXEC, XFER_FROM): a blown deadline raises :class:`StragglerTimeout`,
+a :class:`DeviceFailure` that recovery treats like any other.
+
+Left for a later slice: elastic membership (ROADMAP item 11c).
 """
 from __future__ import annotations
 
@@ -123,6 +126,21 @@ class NodeDevice:
         """Wait until every operation issued on this device's stream is done."""
         if self.stream is not None:
             self.stream.synchronize()
+
+    def busy_clock(self) -> float:
+        """This device's busy clock in seconds, read by its worker thread
+        around an EXEC.  On the card it is the host's wall clock, as in the
+        reference: the EXEC synchronizes the stream, so the span covers the
+        kernel.  On the CPU it is the worker thread's CPU time, which is not
+        the reference's quantity: it leaves out the time the shared CPU
+        (other threads, other processes) kept the virtual device waiting,
+        and any intra-op threads' work (the CPU tests run PyTorch on one
+        thread).  A wall clock there puts load noise into what the cost
+        model, HEFT's observed estimates and the straggler detector read.
+        An injected stall (``FlakyDevice`` ``slow``) adds its own seconds."""
+        if self.stream is not None:
+            return time.perf_counter()
+        return time.thread_time()
 
     def _place(self, value: torch.Tensor) -> torch.Tensor:
         # always a copy: the device buffer must never alias a host tensor
@@ -220,6 +238,16 @@ class DeviceFailure(RuntimeError):
         self.op = op
         self.device = device
         self.kernel_index = kernel_index
+
+
+class StragglerTimeout(DeviceFailure):
+    """A command missed its deadline: a gray failure, not a crash.
+
+    A :class:`DeviceFailure`, so every recovery path (re-place, reroute,
+    heal) treats a blown deadline as one more recoverable fault.  The late
+    command is not cancelled: it runs on to its end on its worker while the
+    host recovers elsewhere, and whatever it stashes is absorbed.
+    """
 
 
 class HealthRegistry:
@@ -361,15 +389,23 @@ class DevicePool:
     that produce a value (EXEC, XFER_FROM) block on their command's future.
     ``stream_traces[d]`` records *execution* order (``trace`` keeps issue
     order).
+
+    ``deadline_s`` bounds the host's wait on each value-producing command
+    (EXEC, XFER_FROM); a blown deadline raises :class:`StragglerTimeout` and
+    is counted per op in ``straggler_timeouts``.  None waits indefinitely.
     """
 
     def __init__(self, devices: Sequence[NodeDevice], *,
                  table: Optional[KernelTable] = None,
                  link: LinkModel = PAPER_ETHERNET,
-                 capacity_bytes: Optional[int] = None) -> None:
+                 capacity_bytes: Optional[int] = None,
+                 deadline_s: Optional[float] = None) -> None:
         self.devices = list(devices)
         self.table = table or GLOBAL_KERNEL_TABLE
         self.cost = CostModel(link)
+        self.deadline_s = deadline_s
+        # blown deadlines by op (guarded by _trace_lock)
+        self.straggler_timeouts: Dict[str, int] = {}
         self.health = HealthRegistry()
         self.mirrors = [HostMirror() for _ in self.devices]
         # RLocks: _submit re-acquires the issue lock the issue methods hold
@@ -513,8 +549,15 @@ class DevicePool:
 
         def _stash(f: "_cf.Future") -> None:
             err = f.exception()
-            if err is not None and self._async_errors[device] is None:
-                self._async_errors[device] = err
+            if err is None or self._async_errors[device] is not None:
+                return
+            disowned = getattr(f, "disowned", False)
+            if disowned and isinstance(err, DeviceFailure):
+                return                       # no one's to raise (see disown)
+            self._async_errors[device] = err
+            if not disowned and getattr(f, "disowned", False):
+                # disowned while it settled
+                self.clear_failure(device, err)
 
         fut.add_done_callback(_stash)
         return fut
@@ -523,6 +566,50 @@ class DevicePool:
         err, self._async_errors[device] = self._async_errors[device], None
         if err is not None:
             raise err
+
+    def clear_failure(self, device: int, err: Optional[BaseException]) -> None:
+        """Clear ``err`` from ``device``'s stash if it is stashed there and is
+        a :class:`DeviceFailure`: the caller handles it, so an innocent
+        sync must not raise it."""
+        if isinstance(err, DeviceFailure):
+            with self.locks[device]:
+                if self._async_errors[device] is err:
+                    self._async_errors[device] = None
+
+    def disown(self, device: int, fut: "_cf.Future") -> None:
+        """Stop answering for a fire-and-forget command on ``device`` that the
+        host no longer waits for (a timed-out peer message): a
+        :class:`DeviceFailure` it ends with is never stashed (or, if it
+        settled meanwhile, is cleared), so neither the device's next command
+        on its worker nor any later sync can inherit it."""
+        fut.disowned = True
+        if fut.done():
+            self.clear_failure(device, fut.exception())
+
+    def _await_deadline(self, device: int, fut: "_cf.Future", cmd: Command):
+        """Wait for a value-producing command under the pool's deadline.
+
+        The deadline is end to end: the command's wait behind the device's
+        queue and stream dependencies, the host's work and, on the card, the
+        kernel's device time too — an EXEC's future resolves only once
+        :meth:`NodeDevice.execute` has synchronized the device's stream.  A
+        blown deadline raises :class:`StragglerTimeout`.  The command is not
+        cancelled: it settles whenever its worker gets to it, and since its
+        future is never read again, a late failure reaches no one.
+        """
+        if self.deadline_s is None:
+            return fut.result()
+        try:
+            return fut.result(timeout=self.deadline_s)
+        except _cf.TimeoutError:
+            with self._trace_lock:
+                self.straggler_timeouts[cmd.op] = (
+                    self.straggler_timeouts.get(cmd.op, 0) + 1)
+            raise StragglerTimeout(
+                f"{cmd.op} on device {device} exceeded the "
+                f"{self.deadline_s}s command deadline",
+                op=cmd.op, device=device,
+                kernel_index=cmd.kernel_index) from None
 
     def absorb_failures(self) -> List[BaseException]:
         """Clear the stashed :class:`DeviceFailure` errors pool-wide; return them.
@@ -687,7 +774,7 @@ class DevicePool:
                 self._traced(device, cmd,
                              lambda: self.devices[device].execute(cmd, self.table, payload)),
                 reads=cmd.reads)
-        out = fut.result()
+        out = self._await_deadline(device, fut, cmd)
         self._raise_async(device)
         nbytes = out.numel() * out.element_size()
         self.cost.record_transfer("from", device, nbytes, tag=tag)
@@ -727,7 +814,8 @@ class DevicePool:
         ``nbytes`` overrides the accounted message size (modeled wire
         compression); the payload itself always moves intact.  Returns the
         RECV future (a registered writer of ``dst_handle``); a SEND failure
-        propagates through it.
+        propagates through it, and its ``send`` attribute is the SEND's own
+        future.
         """
         if src == dst:
             raise ValueError(f"peer_copy: src and dst are both device {src}")
@@ -753,6 +841,7 @@ class DevicePool:
                                                                payload)),
                 writes=rcmd.writes, extra_deps=(send_fut,))
         self.cost.record_peer(src, dst, wire, tag=tag)
+        recv_fut.send = send_fut
         return recv_fut
 
     def exec_kernel(self, device: int, kernel_name: str,
@@ -767,7 +856,11 @@ class DevicePool:
         covers; their ordering arrives via ``extra_deps`` instead.  The
         kernel runs eagerly on the device's stream, which is synchronized
         before the result is handed back (the reference's
-        ``block_until_ready``).
+        ``block_until_ready``), so the pool's deadline covers the kernel's
+        device time.  The seconds recorded for it are the device's
+        :meth:`NodeDevice.busy_clock`: wall seconds on the card, as in the
+        reference; on the CPU, the worker thread's CPU seconds plus injected
+        stalls, not the reference's wall seconds.
         """
         index = self.table.index_of(kernel_name)   # name → wire integer
         all_handles: List[int] = []
@@ -783,13 +876,14 @@ class DevicePool:
                        "trees": trees or {}}
 
             def run_exec():
-                t0 = time.perf_counter()
-                out = self.devices[device].execute(cmd, self.table, payload)
-                return out, time.perf_counter() - t0
+                dev = self.devices[device]
+                t0 = dev.busy_clock()
+                out = dev.execute(cmd, self.table, payload)
+                return out, dev.busy_clock() - t0
 
             fut = self._submit(device, self._traced(device, cmd, run_exec),
                                reads=reads, extra_deps=extra_deps)
-        out, seconds = fut.result()
+        out, seconds = self._await_deadline(device, fut, cmd)
         self._raise_async(device)
         self.cost.record_compute(device, seconds, tag=tag or kernel_name,
                                  kernel=kernel_name)

@@ -21,10 +21,11 @@ buffer resident past it spills the least-recently-used evictable entry and
 the next binding refetches it (capacity changes traffic, never results).
 
 ``transport_retries`` makes the direct fabric retry a failed message
-(seeded backoff) and then fall back to the funnel.
+(seeded backoff) and then fall back to the funnel.  ``command_deadline_s``
+and ``transport_op_timeout_s`` turn a stalled command or message into a
+recoverable :class:`~.device.StragglerTimeout`.
 
-Left for later slices: command deadlines and transport op timeouts (ROADMAP
-item 11b, not fields yet) and calibration (item 12, raises
+Left for a later slice: calibration (ROADMAP item 12, raises
 ``NotImplementedError``).
 """
 from __future__ import annotations
@@ -74,6 +75,13 @@ class RuntimeConfig:
     # it through the host funnel; values are the same either way.  0 keeps
     # the fire-and-forget fabric
     transport_retries: int = 0
+    # straggler protection (None = off): command_deadline_s bounds the wait
+    # on every value-producing device command (EXEC, XFER_FROM) end to end,
+    # a blown deadline raising StragglerTimeout, a recoverable
+    # DeviceFailure; transport_op_timeout_s bounds each peer sendrecv the
+    # same way
+    command_deadline_s: Optional[float] = None
+    transport_op_timeout_s: Optional[float] = None
     transport_backoff_base_s: float = 1e-3
     transport_backoff_seed: int = 0
     # where every virtual device lives: the card unless the caller asks for
@@ -106,11 +114,13 @@ class ClusterRuntime:
         if cfg.n_virtual is not None:
             self.pool = DevicePool.virtual(
                 cfg.n_virtual, device=self.device, table=table, link=cfg.link,
-                capacity_bytes=cfg.device_capacity_bytes)
+                capacity_bytes=cfg.device_capacity_bytes,
+                deadline_s=cfg.command_deadline_s)
         else:
             self.pool = DevicePool.from_config(
                 cfg.nodes, device=self.device, table=table, link=cfg.link,
-                capacity_bytes=cfg.device_capacity_bytes)
+                capacity_bytes=cfg.device_capacity_bytes,
+                deadline_s=cfg.command_deadline_s)
         self.ex = TargetExecutor(self.pool, max_host_threads=cfg.max_host_threads)
         if cfg.topology is not None and cfg.topology.n_devices != len(self.pool):
             self.shutdown()
@@ -124,6 +134,7 @@ class ClusterRuntime:
         self.pool.cost.topology = cfg.topology
         self.transport: Transport = (
             PeerTransport(cfg.peer_link, retries=cfg.transport_retries,
+                          op_timeout_s=cfg.transport_op_timeout_s,
                           backoff_base_s=cfg.transport_backoff_base_s,
                           seed=cfg.transport_backoff_seed,
                           topology=cfg.topology)

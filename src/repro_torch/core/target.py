@@ -437,17 +437,13 @@ class TargetExecutor:
                 ent.handles = []
                 ent.write_futs = []
                 pool.present[device].pop_entry(ent.name)
-                with pool.locks[device]:
-                    if pool._async_errors[device] is err:
-                        pool._async_errors[device] = None
+                pool.clear_failure(device, err)
                 raise err
             ent.write_futs[i] = pool.transfer_to(
                 device, ent.handles[i], value, tag=f"{tag}:heal:{ent.name}")
             ent.version += 1
             # the failure is handled: an innocent sync must not trip on it
-            with pool.locks[device]:
-                if pool._async_errors[device] is err:
-                    pool._async_errors[device] = None
+            pool.clear_failure(device, err)
 
     def _revive(self, device: int, ent: PresentEntry, leaves: List[Any],
                 treedef: Any, tag: str) -> None:

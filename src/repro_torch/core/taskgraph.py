@@ -20,9 +20,12 @@ Port of ``repro.core.taskgraph`` to the extent the main path needs it:
   :class:`~.device.DeviceFailure` is re-placed, rerouted through the funnel
   or retried in place, and a lost resident output is replayed from its
   producer (its lineage); the result is bit-identical to the fault-free run.
+* Hedging: with a straggler detector, a region that runs past its kernel's
+  threshold races a duplicate on another device; the first copy to land
+  wins and the loser's cost records are struck.
 
-Left for later slices, each raising ``NotImplementedError`` naming its
-ROADMAP item: straggler hedging (item 11b) and checkpoints (item 11c).
+Left for a later slice, raising ``NotImplementedError`` naming its ROADMAP
+item: checkpoints (item 11c).
 """
 from __future__ import annotations
 
@@ -509,9 +512,23 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
     fault-free one.  Any other exception re-raises at once.  ``policy``
     (default :class:`RoundRobin`) places each ready node; placement affects
     traffic, never values.  Returns ``{task: host value}``.
+
+    **Hedging** (``stragglers=``, duck-typed on
+    :class:`repro_torch.ft.StragglerDetector`): the join polls the wave's
+    regions every ``poll_s``, and a region whose time since dispatch passes
+    its kernel's threshold gets one duplicate on another healthy candidate
+    (least loaded, lowest index), tagged ``<tag>~hedge<n>``.  The first copy
+    to land wins, the primary on a tie; a failed primary with a live hedge
+    waits for the hedge, and only when both fail does recovery re-dispatch.
+    Once both copies have settled, the loser's cost records are struck
+    (``discard_tag``) and a winning hedge's renamed onto the primary's tag,
+    so each task is modeled once, and the values are bit-identical.  In
+    peer mode a hedge binds its inputs where the live producer map says
+    they are: an input resident only on the stalled device is sent from
+    there by a SEND that queues behind the stalled command on that device's
+    one worker, so such a hedge starts only once the stall is over: it can
+    still beat its primary's own return, but it cannot save the stall.  ``stragglers=None`` keeps the blocking join: no hedge, no poll.
     """
-    if stragglers is not None:
-        raise NotImplementedError("run_graph(stragglers=...): ROADMAP item 11b")
     if checkpoint is not None or resume_from is not None:
         raise NotImplementedError(
             "run_graph(checkpoint=/resume_from=): ROADMAP item 11c")
@@ -749,33 +766,181 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
             except (DeviceFailure, KeyError) as err:
                 _recover_or_raise(rec, err)
 
+    def _launch_hedge(rec: Dict[str, Any]) -> None:
+        """Race a duplicate of a straggling region on another device.
+
+        The ``~`` in ``<tag>~hedge<n>`` is no child separator of
+        ``_tag_matches`` (only ``:`` and ``[`` are), so striking the primary
+        never strikes the hedge's records, nor the other way round."""
+        t = rec["t"]
+        cands = [d for d in ctx.candidates() if d != rec["dev"]]
+        if not cands:
+            return
+        hdev = min(cands, key=lambda d: (ctx.load.get(d, 0), d))
+        rec["hedge_count"] = rec.get("hedge_count", 0) + 1
+        htag = f"{rec['tag']}~hedge{rec['hedge_count']}"
+        prev = producer.get(t.name) if peer else None
+        elapsed = time.monotonic() - rec["start"]
+        entry = f"{tag}:{t.name}"
+        try:
+            hmaps = (_peer_rewrite(t, hdev, rec["orig_maps"], htag)
+                     if peer else rec["orig_maps"])
+            hfut = ex.target(t.kernel, hdev, hmaps, nowait=True, tag=htag)
+        except (DeviceFailure, KeyError):
+            # the hedge could not launch: undo its peer bookkeeping and let
+            # the primary race alone
+            _absorb()
+            if peer:
+                if prev is not None:
+                    producer[t.name] = prev
+                if ((prev is None or prev[0] != hdev)
+                        and (hdev, entry) in peer_entries):
+                    ex.exit_data(hdev, entry)
+                    peer_entries.pop((hdev, entry), None)
+            return
+        ctx.load[hdev] = ctx.load.get(hdev, 0) + 1
+        hrec = stragglers.note_launch(
+            task=t.name, kernel=t.kernel, primary_device=rec["dev"],
+            hedge_device=hdev, elapsed_s=elapsed,
+            threshold_s=stragglers.threshold(t.kernel) or 0.0)
+        rec["hedge"] = {"fut": hfut, "tag": htag, "dev": hdev,
+                        "prev_producer": prev, "record": hrec}
+
+    def _drop_hedge(rec: Dict[str, Any], outcome: str) -> None:
+        """Strike a settled, losing hedge; restore the primary's state."""
+        h = rec["hedge"]
+        t = rec["t"]
+        entry = f"{tag}:{t.name}"
+        _absorb()
+        pool.cost.discard_tag(h["tag"])
+        if peer:
+            if h["prev_producer"] is not None:
+                producer[t.name] = h["prev_producer"]
+            keep_dev = producer.get(t.name, (None,))[0]
+            if h["dev"] != keep_dev and (h["dev"], entry) in peer_entries:
+                ex.exit_data(h["dev"], entry)
+                peer_entries.pop((h["dev"], entry), None)
+                ctx.replicas.setdefault(t.name, set()).discard(h["dev"])
+        stragglers.note_winner(h["record"], outcome)
+        rec["hedge"] = None
+
+    def _promote_hedge(rec: Dict[str, Any]) -> None:
+        """The hedge won: strike the primary, canonicalize the hedge."""
+        h = rec["hedge"]
+        t = rec["t"]
+        entry = f"{tag}:{t.name}"
+        _absorb()
+        # strike the loser first: renaming first would hand the winner's
+        # records to the discard
+        pool.cost.discard_tag(rec["tag"])
+        pool.cost.rename_tag(h["tag"], rec["tag"])
+        if peer:
+            producer[t.name] = (h["dev"], entry)
+            pdev = rec["dev"]
+            if pdev != h["dev"] and (pdev, entry) in peer_entries:
+                ex.exit_data(pdev, entry)
+                peer_entries.pop((pdev, entry), None)
+                ctx.replicas.setdefault(t.name, set()).discard(pdev)
+            ctx.replicas.setdefault(t.name, set()).add(h["dev"])
+            ctx.home[t.name] = h["dev"]
+        stragglers.note_winner(h["record"], "hedge")
+        rec["hedge"] = None
+
+    def _settle_hedges(records: List[Dict[str, Any]]) -> None:
+        """Decide every open race once both copies have settled: a loser's
+        cost records land when it completes, so it can be struck only
+        then."""
+        for rec in records:
+            h = rec.get("hedge")
+            if h is None:
+                continue
+            _cf.wait([rec["fut"]._fut, h["fut"]._fut])
+            if rec.get("winner") == "hedge":
+                _promote_hedge(rec)
+            else:
+                _drop_hedge(rec, "primary")
+
+    def _maybe_hedge(rec: Dict[str, Any], thresholds: Dict[str, Any]) -> None:
+        """Launch a hedge for an in-flight primary past its threshold.  The
+        threshold is read once per kernel and poll (``thresholds``): each
+        read scans the cost model's records."""
+        if rec.get("hedge_count", 0) >= 1:
+            return
+        kernel = rec["t"].kernel
+        if kernel not in thresholds:
+            thresholds[kernel] = stragglers.threshold(kernel)
+        th = thresholds[kernel]
+        elapsed = time.monotonic() - rec["start"]
+        if (th is not None and elapsed > th
+                and stragglers.should_hedge(kernel, elapsed)):
+            _launch_hedge(rec)
+
     def _join_recovering(records: List[Dict[str, Any]]) -> None:
         """Join a wave's ``nowait`` regions, recovering failed ones.
 
-        Returns only once EVERY region, re-dispatched ones included, has
-        settled, so the pin releases after it never pull a buffer from under
-        a running region.  Outcomes land in each record's ``out``.
+        Returns only once EVERY region, re-dispatched ones and hedges
+        included, has settled, so the pin releases after it never pull a
+        buffer from under a running region.  Outcomes land in each record's
+        ``out``.  With a straggler detector the wait becomes a poll (see
+        :func:`run_graph`).
         """
         all_futs: List[TargetFuture] = [r["fut"] for r in records]
         pending = list(records)
         try:
             while pending:
-                _cf.wait([r["fut"]._fut for r in pending])
+                waitset = [r["fut"]._fut for r in pending]
+                waitset += [r["hedge"]["fut"]._fut for r in pending
+                            if r.get("hedge")]
+                if stragglers is None:
+                    _cf.wait(waitset)
+                else:
+                    _cf.wait(waitset, timeout=stragglers.poll_s,
+                             return_when=_cf.FIRST_COMPLETED)
+                thresholds: Dict[str, Any] = {}
                 nxt: List[Dict[str, Any]] = []
                 for rec in pending:
-                    err = rec["fut"]._fut.exception()
-                    if err is None:
-                        rec["out"] = rec["fut"]._fut.result()
+                    pf = rec["fut"]._fut
+                    h = rec.get("hedge")
+                    if pf.done() and pf.exception() is None:
+                        rec["out"] = pf.result()
+                        if h is not None:
+                            rec["winner"] = "primary"
                         continue
-                    if not isinstance(err, (DeviceFailure, KeyError)):
-                        raise err
-                    _recover_or_raise(rec, err)
-                    rec["fut"] = ex.target(rec["t"].kernel, rec["dev"],
-                                           rec["maps"], nowait=True,
-                                           tag=rec["tag"])
-                    all_futs.append(rec["fut"])
+                    if h is not None and h["fut"]._fut.done():
+                        herr = h["fut"]._fut.exception()
+                        if herr is None:
+                            rec["out"] = h["fut"]._fut.result()
+                            rec["winner"] = "hedge"
+                            continue
+                        if not isinstance(herr, (DeviceFailure, KeyError)):
+                            raise herr
+                        _drop_hedge(rec, "failed")
+                        h = None
+                    if pf.done():
+                        err = pf.exception()
+                        if not isinstance(err, (DeviceFailure, KeyError)):
+                            raise err
+                        if h is not None:
+                            # the hedge still races: let it decide the node
+                            # before a recovery attempt is spent
+                            nxt.append(rec)
+                            continue
+                        _recover_or_raise(rec, err)
+                        rec["start"] = time.monotonic()
+                        rec["fut"] = ex.target(rec["t"].kernel, rec["dev"],
+                                               rec["maps"], nowait=True,
+                                               tag=rec["tag"])
+                        all_futs.append(rec["fut"])
+                        nxt.append(rec)
+                        continue
+                    if stragglers is not None and h is None:
+                        _maybe_hedge(rec, thresholds)
+                        if rec.get("hedge") is not None:
+                            all_futs.append(rec["hedge"]["fut"])
                     nxt.append(rec)
                 pending = nxt
+            if stragglers is not None:
+                _settle_hedges(records)
         finally:
             # the error path too: settle everything still in flight before
             # the caller's teardown releases pins
@@ -853,6 +1018,7 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                         pass           # shape changed under this name: skip pin
             for p in plans:
                 if nowait:
+                    p["start"] = time.monotonic()
                     p["fut"] = ex.target(p["t"].kernel, p["dev"], p["maps"],
                                          nowait=True, tag=p["tag"])
                     records.append(p)

@@ -35,11 +35,12 @@ is only safe because slots are replaced, never written through.
 
 ``PeerTransport(retries>0)`` makes the fabric fault tolerant: a failed
 message is re-sent after a seeded backoff and, once the peer wire has failed
-``retries`` times, carried through the host funnel.  ``op_timeout_s`` (a
-hung message treated as a fault) is ROADMAP item 11b.
+``retries`` times, carried through the host funnel; ``op_timeout_s`` treats
+a hung message as such a failure.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import math
 import threading
 import time
@@ -498,8 +499,18 @@ class PeerTransport(Transport):
     a draw in [0.5, 1) from ``np.random.default_rng((seed, 0xB0FF))``, so the
     same (seed, failure schedule) replays the same delays.  The delivered
     value is the same on either wire, so collectives stay bit-identical
-    under injection.  ``retries=0`` keeps the fire-and-forget fabric.
-    ``op_timeout_s`` is ROADMAP item 11b and raises.
+    under injection.
+
+    ``op_timeout_s`` bounds how long a ``sendrecv`` waits for its RECV: a
+    blown timeout counts in ``timeouts``, is classified as a
+    :class:`~.device.StragglerTimeout` and takes the same retry → backoff →
+    funnel path as a failure.  The timed-out pair is disowned
+    (:meth:`~.device.DevicePool.disown`): it runs on to its end, and a
+    failure it ends with is cleared from its devices' stashes as it lands,
+    before either device's worker runs another command.  So the funnel's
+    fetch, which queues on the source device behind the hung SEND, cannot
+    inherit the SEND's failure.  ``retries=0`` without a timeout keeps the
+    fire-and-forget fabric.
     """
 
     kind = "peer"
@@ -508,18 +519,16 @@ class PeerTransport(Transport):
                  retries: int = 0, *, op_timeout_s: Optional[float] = None,
                  backoff_base_s: float = 1e-3, backoff_cap_s: float = 0.1,
                  seed: int = 0, topology=None) -> None:
-        if op_timeout_s is not None:
-            raise NotImplementedError(
-                "PeerTransport(op_timeout_s=...): a hung message needs "
-                "StragglerTimeout, ROADMAP item 11b")
         self.link = link
         self.topology = topology
         self.retries = retries
+        self.op_timeout_s = op_timeout_s
         self.backoff_base_s = backoff_base_s
         self.backoff_cap_s = backoff_cap_s
         self._rng = np.random.default_rng((seed, 0xB0FF))
         self._rng_lock = threading.Lock()
         self.fallbacks = 0      # edges rerouted to the funnel
+        self.timeouts = 0       # messages that blew op_timeout_s
         self.backoffs = 0       # backoff sleeps taken
         self.backoff_s = 0.0    # seconds spent backing off
 
@@ -537,15 +546,26 @@ class PeerTransport(Transport):
     def sendrecv(self, pool, src: int, src_handle: int,
                  dst: int, dst_handle: int, *,
                  nbytes: Optional[int] = None, tag: str = ""):
-        if self.retries <= 0:
+        if self.retries <= 0 and self.op_timeout_s is None:
             return pool.peer_copy(src, src_handle, dst, dst_handle,
                                   nbytes=nbytes, tag=tag)
-        from .device import DeviceFailure
+        from .device import DeviceFailure, StragglerTimeout
         attempt = 0
         while True:
             fut = pool.peer_copy(src, src_handle, dst, dst_handle,
                                  nbytes=nbytes, tag=tag)
-            err = fut.exception()
+            try:
+                err = fut.exception(timeout=self.op_timeout_s)
+            except cf.TimeoutError:
+                # a straggler: the pair runs on, and whatever it ends with is
+                # no one's to raise
+                self.timeouts += 1
+                pool.disown(src, fut.send)
+                pool.disown(dst, fut)
+                err = StragglerTimeout(
+                    f"SEND/RECV {src}->{dst} exceeded the "
+                    f"{self.op_timeout_s}s transport op timeout",
+                    op="RECV", device=dst)
             if err is None:
                 return fut
             if not isinstance(err, DeviceFailure):

@@ -16,8 +16,9 @@ Port of ``repro.ft.failures``:
 
 Graph-level recovery (re-placement, funnel reroute, lineage replay) is
 :func:`repro_torch.core.taskgraph.run_graph`'s.  A ``hang`` fault sleeps and
-then fails; without command deadlines (ROADMAP item 11b) a waiter sees only
-the failure.
+then fails; a command deadline (``DevicePool(deadline_s=)``) or a transport
+op timeout (``PeerTransport(op_timeout_s=)``) fires long before, and the
+host recovers while the hung command runs on.
 """
 from __future__ import annotations
 
@@ -51,8 +52,9 @@ class FlakyDevice:
     per eligible command in the device's execution order, so a given (seed,
     p, ops, mode) replays the same schedule for the same per-device command
     sequence, in both packages.  ``failures`` counts injected faults
-    (``fail`` and ``hang``), ``stalls`` the ``slow`` delays; each has a
-    per-op breakdown.  Every other attribute is the wrapped device's.
+    (``fail`` and ``hang``), ``stalls`` the ``slow`` delays (their seconds in
+    ``stalled_s``); each count has a per-op breakdown.  Every other
+    attribute is the wrapped device's.
     """
 
     def __init__(self, inner: NodeDevice, p: float, seed: int = 0,
@@ -76,6 +78,7 @@ class FlakyDevice:
         self.failures_by_op: Dict[str, int] = {}
         self.stalls = 0
         self.stalls_by_op: Dict[str, int] = {}
+        self.stalled_s = 0.0
 
     def execute(self, cmd: Command, table, payload=None):
         if cmd.op in self._ops and self._rng.random() < self._p:
@@ -83,6 +86,7 @@ class FlakyDevice:
                 self.stalls += 1
                 self.stalls_by_op[cmd.op] = self.stalls_by_op.get(cmd.op, 0) + 1
                 time.sleep(self._slow_s)
+                self.stalled_s += self._slow_s
                 return self._inner.execute(cmd, table, payload)
             self.failures += 1
             self.failures_by_op[cmd.op] = self.failures_by_op.get(cmd.op, 0) + 1
@@ -95,6 +99,14 @@ class FlakyDevice:
                 op=cmd.op, device=self._inner.index,
                 kernel_index=cmd.kernel_index)
         return self._inner.execute(cmd, table, payload)
+
+    def busy_clock(self) -> float:
+        """The wrapped device's busy clock, with the stalls injected here
+        counted as device time on the CPU, where that clock is the worker's
+        CPU time and does not see a sleep (the card's wall clock does)."""
+        if self._inner.stream is not None:
+            return self._inner.busy_clock()
+        return self._inner.busy_clock() + self.stalled_s
 
     def __getattr__(self, name):
         return getattr(self._inner, name)

@@ -1026,6 +1026,60 @@ def test_chaos_sparselu_on_the_card_is_bit_identical(cuda_device):
     assert torch.equal(got[0.2][0], got[0.0][0])
 
 
+@pytest.mark.parametrize("peer", [False, True])
+def test_hedged_sparselu_on_the_card_is_bit_identical(cuda_device, peer):
+    """Sparselu K=4, B=32, D=4 with device 0 stalling every EXEC for 50 ms,
+    hedged by a StragglerDetector: hedges launch and win, every loser's
+    compute record is struck, every bmod launch — hedges included — is on
+    cp_async, and the factorization is the serial kernel's bit for bit."""
+    from repro_torch.ft import FlakyDevice, StragglerDetector
+    K, B = 4, 32
+    mat = tbl._matrix(K, B)
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=4,
+                                      comm_mode="direct" if peer else "host-mediated"),
+                        table=tbl._make_table(K), device=cuda_device)
+    try:
+        ser = tbl.serial(rt, mat)
+        rt.cost.reset()
+        baseline = {k: 1e-3 for k in ("lu0", "fwd", "bdiv", "bmod")}
+        rt.pool.devices[0] = FlakyDevice(rt.pool.devices[0], p=1.0, seed=3,
+                                         ops=("EXEC",), mode="slow", slow_s=0.05)
+        det = StragglerDetector(rt.cost, k=3.0, grace_s=0.01, poll_s=0.002,
+                                max_hedges=64, baseline=baseline)
+        before = (k2.launches.count, k2.path_launches["cp_async"].count)
+        res = tbl.wavefront(rt, mat, peer=peer, stragglers=det)
+        launches = k2.launches.count - before[0]
+        assert k2.path_launches["cp_async"].count - before[1] == launches
+        assert launches >= sum(m * m for m in range(K))
+        assert len(rt.cost.compute) == len(tbl._build_dag(mat, K, B))
+        assert det.report()["hedge_wins"] >= 1
+    finally:
+        rt.shutdown()
+    assert torch.equal(tbl.assemble(res, K), ser)
+
+
+def test_speculated_strips_on_the_card_equal_plain(cuda_device):
+    """Mandelbrot 256² at D=4 with device 1 stalling every EXEC for 0.2 s,
+    ``offload_strips(speculate=True)``: the stalled strip is respawned, every
+    K1 launch is chunked, and the image is the plain version's bit for bit."""
+    from repro_torch.ft import FlakyDevice
+    n, it = 256, 300
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=4), table=tbm._make_table(n, n, it),
+                        device=cuda_device)
+    try:
+        rt.pool.devices[1] = FlakyDevice(rt.pool.devices[1], p=1.0, seed=0,
+                                         ops=("EXEC",), mode="slow", slow_s=0.2)
+        before = (k1.launches.count, k1.path_launches["chunked"].count)
+        img = tbm.strips(rt, tbm.all_rows(n), n, nowait=True, speculate=True)
+        launches = k1.launches.count - before[0]
+        assert k1.path_launches["chunked"].count - before[1] == launches > 4
+        assert any(c.op == "EXEC" and ":spec[" in c.tag for c in rt.pool.trace)
+    finally:
+        rt.shutdown()
+    rows = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(img, mandelbrot_rows_ref(rows, n, n, it).cpu())
+
+
 def test_capped_sparselu_equals_uncapped_on_the_card(cuda_device):
     """A cap of four blocks a device forces spills (device-ahead blocks
     fetched to the host first) and refetches on the devices' streams; the

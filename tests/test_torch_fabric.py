@@ -359,14 +359,15 @@ def test_gather_and_scratch_are_freed():
 
 
 def test_unported_transport_options_raise():
-    # retries (item 11a) construct with the reference's defaults; the op
-    # timeout needs StragglerTimeout and still raises (item 11b)
+    # retries (item 11a) and the op timeout (item 11b) construct with the
+    # reference's defaults
     tr, ref = T.PeerTransport(retries=2), J.PeerTransport(retries=2)
     assert (tr.retries, tr.backoff_base_s, tr.backoff_cap_s) == \
         (ref.retries, ref.backoff_base_s, ref.backoff_cap_s)
     assert (tr.fallbacks, tr.backoffs, tr.backoff_s) == (0, 0, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
-        T.PeerTransport(op_timeout_s=0.1)
+    tr, ref = T.PeerTransport(op_timeout_s=0.1), J.PeerTransport(op_timeout_s=0.1)
+    assert (tr.op_timeout_s, tr.retries, tr.timeouts) == \
+        (ref.op_timeout_s, ref.retries, ref.timeouts) == (0.1, 0, 0)
 
 
 # ---------------------------------------------------------------------------

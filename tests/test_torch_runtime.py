@@ -136,8 +136,8 @@ def test_unported_options_raise_not_implemented():
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2), table=_table(T),
                           device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
-            T.wavefront_offload(rt.ex, [], peer=True, stragglers=object())
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11c"):
+            T.wavefront_offload(rt.ex, [], peer=True, checkpoint=object())
         assert T.wavefront_offload(rt.ex, [], policy="heft") == {}
         assert isinstance(T.resolve_policy("heft"), T.HeftPlacement)
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
