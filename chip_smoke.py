@@ -76,7 +76,15 @@ runs, printing one JSON line per phase:
    peer fabric with 0.2 s SEND hangs at p = 0.2 under a 0.05 s transport op
    timeout, and mandelbrot 4600² at D=8 with device 3 stalling every EXEC
    for 0.2 s, with and without ``offload_strips(speculate=True)``: each
-   equal to the serial run bit for bit; then BOTS fib(21) (``recursive_offload``, one
+   equal to the serial run bit for bit; then checkpoints and elasticity:
+   K=16 over the peer fabric checkpointed every wave and halted after 23 of
+   46 waves, resumed in a fresh interpreter (``repro_torch.resume_smoke``;
+   exactly the 268 EXECs left), the same halt host-mediated resumed in this
+   process, a shrink from 4 to 2 devices that drains two 64 MiB weights
+   updated on the departing devices (``rescale_pool``) followed by K=16 on
+   the survivors, K=16 grown from 2 to 4 devices mid-graph, and mandelbrot
+   strips on a pool shrunk from 8 to 4 and grown back: each equal to the
+   serial run bit for bit; then BOTS fib(21) (``recursive_offload``, one
    busy-loop kernel launch per leaf) and alignment (128 queries x 32
    references, the bank resident, query strips) on 8 virtual devices, each
    equal to its serial run bit for bit, after the busy-loop kernel against
@@ -133,7 +141,8 @@ Every kernel's launch count, and K1's, K2's, K3's, K4's and K6's counts per
 path, are set to 0 just before a main-path phase and read just after; a
 kernel of the path that did not launch fails the run, and so does a
 mandelbrot K1 launch off the ``chunked`` path, a sparselu K2 launch off the
-``cp_async`` path (re-executions under faults included), a serve K3 launch off the ``split`` path, a bf16
+``cp_async`` path (re-executions under faults and the resumed child's
+launches included), a serve K3 launch off the ``split`` path, a bf16
 K4 launch off the ``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a
 decode K6 launch off ``small_c``.
 Then it prints the ``{"kernels": [...]}`` line (times, bounds, launches) and,
@@ -208,6 +217,10 @@ HEDGE = {"k": 3.0, "grace_s": 0.02, "poll_s": 0.005, "max_hedges": 512}
 DEADLINE_S, HANG_P, HANG_S = 0.25, 0.01, 0.5
 OP_TIMEOUT_S, SEND_HANG_P, SEND_HANG_S = 0.05, 0.2, 0.2
 SPEC_DEVICE, SPEC_SLOW_S = 3, 0.2
+# every per-device list of a DevicePool: a rescale keeps each one len(pool) long
+POOL_LISTS = ("devices", "mirrors", "locks", "present", "env_locks", "_queues",
+              "_stopped", "_async_errors", "_last_write", "_readers", "_outstanding",
+              "stream_traces", "_workers")
 Q8_RAGGED = (1, 255, 256, 257, 1000003) # wire kernel lengths off the 256-value block
 BMOD_SHAPES = ((128, 128, 128), (96, 96, 96), (64, 64, 64), (200, 72, 136))   # (M, N, K)
 # the serve phase's attention shapes (minitron-4b: 8 kv heads, r = 3, d = 128)
@@ -2138,6 +2151,251 @@ def phase_stragglers(torch, ser, lu_rows: list, fault_rows: list, mandel_img,
     return k1_launches, k1_paths, rows
 
 
+def _per_device_lengths(pool) -> dict:
+    return {name: len(getattr(pool, name)) for name in POOL_LISTS}
+
+
+def phase_checkpoint_elastic(torch, ser, lu_rows: list, placed_rows: list, mandel_img):
+    """Checkpoints and elasticity on the card, against the serial
+    factorization ``ser`` (K=16, B=128) and the serial image:
+
+    (a) ``resume_smoke.run``: K=16 over the peer fabric under locality at
+        D=4, a checkpoint every wave, halted after save 23 of 46 waves, then
+        resumed in a fresh interpreter on the card: the serial kernel's bits,
+        exactly the EXECs of the tasks not yet completed, every K2 launch of
+        the killed run and of the child (counted there) on cp_async;
+    (b) the same halt host-mediated under round-robin, from one save after
+        wave 23 (``every_waves=23``), resumed in this process on a fresh
+        runtime: the serial kernel's bits and the tail's EXECs;
+    (c) a 4096 x 4096 fp32 weight entered on each of ``DP_DEVICES`` devices,
+        a ``nowait`` region updating the copies of devices 2 and 3 on the
+        device, then ``rescale_pool`` to 2: both updated weights moved, their
+        bits read back from their new home, 2 x 64 MiB reconciled, every
+        per-device list of length 2; then K=16 over the peer fabric under
+        locality on the two survivors, the serial kernel's bits;
+    (d) K=16 over the peer fabric under round-robin on D=2, grown to
+        ``LU_DEVICES`` inside the ``make_maps`` of a task of wave 3: the
+        serial kernel's bits, and the joined devices ran EXECs;
+    (e) mandelbrot 4600² strips at D=8, on the pool shrunk to 4, and grown
+        back to 8: each image the serial one, every K1 launch chunked.
+
+    Returns the phase's K1 launches and paths, and its rows (their K2
+    launches join the kernel line's)."""
+    import dataclasses
+    import tempfile
+    from repro_torch import resume_smoke
+    from repro_torch.bots import mandelbrot as bm
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import (ClusterRuntime, GraphCheckpoint, GraphInterrupted,
+                                  MapSpec, RuntimeConfig, TaskGraph)
+    from repro_torch.ft import rescale_pool
+    from repro_torch.kernels.block_lu import block_lu as k2
+    from repro_torch.kernels.mandelbrot import mandelbrot as k1
+    mat = bl._matrix(LU_K, LU_B)
+    waves = TaskGraph.from_tasks(bl._build_dag(mat, LU_K, LU_B)).waves()
+    kill_at = len(waves) // 2
+    tail = [n for w in waves[kill_at:] for n in w]
+    tail_bmods = sum(1 for n in tail if n.startswith("bmod_"))
+    expect = sum(m * m for m in range(LU_K))
+    locality, round_robin = placed_rows[0], lu_rows[1]
+    rows = []
+
+    def k2_ok(what, launches, paths, want=None):
+        if (want is not None and launches != want) or paths["cp_async"] != launches:
+            fail(f"{what}: bmod launched {launches} times ({paths}); expected "
+                 f"{want if want is not None else 'any number'}, every one on cp_async")
+
+    def lu_ok(what, res):
+        diff = float((bl.assemble(res, LU_K) - ser).abs().max())
+        if diff != 0.0:
+            fail(f"{what}: sparselu differs from the serial kernel by {diff}")
+        return diff
+
+    # (a) kill and resume in a fresh interpreter
+    _reset_counts(k2)
+    t0 = time.perf_counter()
+    drill = resume_smoke.run(LU_K, LU_B, LU_DEVICES, device="cuda", reference=ser)
+    wall = time.perf_counter() - t0
+    parent = {"bmod_launches": k2.launches.count, "bmod_path_launches": _path_counts(k2)}
+    child = drill["child_bmod_path_launches"]
+    row = {"phase": "checkpoint_elastic", "case": "kill_and_resume", "fabric": "peer",
+           "policy": "locality", **drill, "drill_wall_s": wall,
+           "tail_tasks": len(tail), "tail_bmods": tail_bmods,
+           "killed_bmod_launches": parent["bmod_launches"],
+           "killed_bmod_path_launches": parent["bmod_path_launches"],
+           "uninterrupted_locality_wall_s": locality["wall_s"],
+           "child_wall_ratio": drill["child_wall_s"] / locality["wall_s"],
+           "child_resume_wall_ratio": drill["child_resume_wall_s"] / locality["wall_s"]}
+    emit(row)
+    if not drill["identical"] or drill["execs_resumed"] != len(tail):
+        fail(f"kill and resume: identical {drill['identical']}, "
+             f"{drill['execs_resumed']} EXECs in the child for {len(tail)} tasks left")
+    k2_ok("kill and resume (killed run)", parent["bmod_launches"],
+          parent["bmod_path_launches"], expect - tail_bmods)
+    k2_ok("kill and resume (child)", sum(child.values()), child, tail_bmods)
+    rows += [parent, {"bmod_launches": sum(child.values()), "bmod_path_launches": child}]
+
+    # (b) host-mediated, resumed in this process
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ck_") as ckdir:
+        ck = GraphCheckpoint(ckdir, every_waves=kill_at, keep=2, halt_after=1)
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES), table=bl._make_table(LU_K),
+                            device="cuda")
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        try:
+            bl.wavefront(rt, mat, checkpoint=ck)
+            fail("host-mediated checkpoint: halt_after did not stop the run")
+        except GraphInterrupted:
+            killed_wall = time.perf_counter() - t0
+        finally:
+            rt.shutdown()
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=LU_DEVICES), table=bl._make_table(LU_K),
+                            device="cuda")
+        try:
+            t0 = time.perf_counter()
+            res = bl.wavefront(rt, mat, resume_from=ckdir)
+            resume_wall = time.perf_counter() - t0
+            execs = sum(1 for c in rt.pool.trace if c.op == "EXEC")
+            s = rt.cost.summary()
+        finally:
+            rt.shutdown()
+    launches, paths = k2.launches.count, _path_counts(k2)
+    row = {"phase": "checkpoint_elastic", "case": "resume_in_process",
+           "fabric": "host-mediated", "policy": "round-robin", "K": LU_K, "B": LU_B,
+           "devices": LU_DEVICES, "every_waves": kill_at, "saves": ck.saves,
+           "save_s": ck.save_s, "bytes_written": ck.bytes_written,
+           "killed_wall_s": killed_wall, "resume_wall_s": resume_wall,
+           "execs_resumed": execs, "resume_bytes_to": s["bytes_to"],
+           "resume_bytes_from": s["bytes_from"],
+           "uninterrupted_wall_s": lu_rows[0]["wall_s"], "bmod_launches": launches,
+           "bmod_path_launches": paths, "max_abs_diff_vs_serial": lu_ok("resume in process", res)}
+    emit(row)
+    rows.append(row)
+    if execs != len(tail):
+        fail(f"resume in process: {execs} EXECs for {len(tail)} tasks left")
+    k2_ok("resume in process", launches, paths, expect)
+
+    # (c) shrink with device-ahead state, then sparselu on the survivors
+    table = bl._make_table(LU_K)
+    table.register("bump", lambda state, s: {"state": state + s})
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=DP_DEVICES, comm_mode="direct"),
+                        table=table, device="cuda")
+    try:
+        g = torch.Generator().manual_seed(FAULT_SEED)
+        w = torch.randn(DP_D_MODEL, DP_D_MODEL, generator=g)
+        half = torch.tensor(0.5)
+        updated = (w.cuda() + half.cuda()).cpu()
+        for d in range(DP_DEVICES):
+            rt.ex.enter_data(d, **{f"w{d}": w})
+        ahead = (2, 3)
+        for d in ahead:
+            rt.ex.target("bump", d, MapSpec(present={"state": f"w{d}"},
+                                            device_out={"state": f"w{d}"}, to={"s": half}),
+                         nowait=True, tag="bump")
+        t0 = time.perf_counter()
+        rep = rescale_pool(rt, 2)
+        rescale_s = time.perf_counter() - t0
+        lengths = _per_device_lengths(rt.pool)
+        moved = {m[0]: m for m in rep["moved"]}
+        read_back = {f"w{d}": bool(torch.equal(rt.ex.fetch_resident(moved[f"w{d}"][2],
+                                                                    f"w{d}"), updated))
+                     for d in ahead if f"w{d}" in moved}
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = bl.wavefront(rt, mat, peer=True, policy="locality")
+        shrunk_wall = time.perf_counter() - t0
+        launches, paths = k2.launches.count, _path_counts(k2)
+        n_pool = len(rt.pool)
+    finally:
+        rt.shutdown()
+    row = {"phase": "checkpoint_elastic", "case": "shrink_device_ahead",
+           "weight_shape": [DP_D_MODEL, DP_D_MODEL], "from": rep["from"], "to": rep["to"],
+           "moved": rep["moved"], "dropped": rep["dropped"],
+           "reconciled_bytes": rep["reconciled_bytes"], "rescale_s": rescale_s,
+           "read_back_updated": read_back, "per_device_lengths": lengths,
+           "sparselu_policy": "locality", "wall_s": shrunk_wall,
+           "fixed_d4_locality_wall_s": locality["wall_s"],
+           "wall_ratio": shrunk_wall / locality["wall_s"], "bmod_launches": launches,
+           "bmod_path_launches": paths,
+           "max_abs_diff_vs_serial": lu_ok("sparselu after a shrink", res)}
+    emit(row)
+    rows.append(row)
+    if n_pool != 2 or set(lengths.values()) != {2}:
+        fail(f"shrink: pool of {n_pool}, per-device lists {lengths}")
+    if read_back != {"w2": True, "w3": True}:
+        fail(f"shrink: updated weights moved and read back {read_back} ({rep})")
+    if rep["reconciled_bytes"] != 2 * DP_D_MODEL * DP_D_MODEL * 4:
+        fail(f"shrink: reconciled {rep['reconciled_bytes']} bytes")
+    k2_ok("sparselu after a shrink", launches, paths, expect)
+
+    # (d) grow from 2 to LU_DEVICES while the graph runs
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=2, comm_mode="direct"),
+                        table=bl._make_table(LU_K), device="cuda")
+    grown = {}
+    try:
+        grow_at = waves[3][0]
+
+        def growing(t):
+            def make_maps(deps):
+                if not grown:
+                    grown["wave"] = 3
+                    grown["report"] = rescale_pool(rt, LU_DEVICES)
+                return t.make_maps(deps)
+            return dataclasses.replace(t, make_maps=make_maps)
+
+        tasks = [growing(t) if t.name == grow_at else t
+                 for t in bl._build_dag(mat, LU_K, LU_B)]
+        _reset_counts(k2)
+        t0 = time.perf_counter()
+        res = rt.wavefront_offload(tasks, nowait=True, resident=True, peer=True,
+                                   policy="round-robin")
+        grow_wall = time.perf_counter() - t0
+        launches, paths = k2.launches.count, _path_counts(k2)
+        execs = [sum(1 for c in rt.pool.trace if c.op == "EXEC" and c.device == d)
+                 for d in range(len(rt.pool))]
+    finally:
+        rt.shutdown()
+    row = {"phase": "checkpoint_elastic", "case": "grow_mid_graph", "fabric": "peer",
+           "policy": "round-robin", "from": 2, "to": LU_DEVICES, "grown_at_task": grow_at,
+           "grown_in_wave": grown.get("wave"), "execs_by_device": execs,
+           "wall_s": grow_wall, "fixed_d4_wall_s": round_robin["wall_s"],
+           "wall_ratio": grow_wall / round_robin["wall_s"], "bmod_launches": launches,
+           "bmod_path_launches": paths,
+           "max_abs_diff_vs_serial": lu_ok("sparselu grown mid-graph", res)}
+    emit(row)
+    rows.append(row)
+    if len(execs) != LU_DEVICES or not all(execs[d] > 0 for d in range(2, LU_DEVICES)):
+        fail(f"grow mid-graph: EXECs by device {execs}")
+    k2_ok("sparselu grown mid-graph", launches, paths, expect)
+
+    # (e) strips on a shrunk and a regrown pool
+    n = MANDEL_SIZE
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=MANDEL_DEVICES),
+                        table=bm._make_table(n, n, MANDEL_ITER), device="cuda")
+    strips = []
+    try:
+        _reset_counts(k1)
+        for size in (MANDEL_DEVICES, MANDEL_DEVICES // 2, MANDEL_DEVICES):
+            rep = rescale_pool(rt, size)
+            t0 = time.perf_counter()
+            img = bm.strips(rt, bm.all_rows(n), n, nowait=True)
+            strips.append({"devices": len(rt.pool), "rescale": [rep["from"], rep["to"]],
+                           "wall_s": time.perf_counter() - t0,
+                           "image_equal_serial": bool(torch.equal(img, mandel_img))})
+        k1_launches, k1_paths = k1.launches.count, _path_counts(k1)
+    finally:
+        rt.shutdown()
+    emit({"phase": "checkpoint_elastic", "case": "rescaled_strips", "size": n,
+          "runs": strips, "kernel_launches": k1_launches, "kernel_path_launches": k1_paths})
+    want = sum(r["devices"] for r in strips)
+    if not all(r["image_equal_serial"] for r in strips):
+        fail(f"strips on a rescaled pool: {strips}")
+    if k1_launches != want or k1_paths != {"chunked": want}:
+        fail(f"strips on a rescaled pool: K1 launched {k1_launches} times ({k1_paths}), "
+             f"expected {want}, all chunked")
+    return k1_launches, k1_paths, rows
+
+
 def phase_fib_alignment(torch, peaks):
     """BOTS fib and alignment at the reference's "large" size on
     ``BOTS_DEVICES`` virtual devices, each against its serial run (bit for
@@ -2839,12 +3097,14 @@ def main() -> int:
     del lu_placed
     strag_k1, strag_paths, strag_rows = phase_stragglers(torch, lu_ser, lu_rows, fault_rows,
                                                          mandel_img, mandel_s)
+    ck_k1, ck_paths, ck_rows = phase_checkpoint_elastic(torch, lu_ser, lu_rows, placed_rows,
+                                                        mandel_img)
     del mandel_img
     for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths),
-                            (strag_k1, strag_paths)):
+                            (strag_k1, strag_paths), (ck_k1, ck_paths)):
         k1_launches += launches
         k1_paths = {p: k1_paths.get(p, 0) + paths.get(p, 0) for p in {*k1_paths, *paths}}
-    lu_rows += placed_rows + fault_rows + strag_rows
+    lu_rows += placed_rows + fault_rows + strag_rows + ck_rows
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
                 for p in lu_rows[0]["bmod_path_launches"]}

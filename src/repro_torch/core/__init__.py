@@ -7,6 +7,7 @@ Public API (counterparts of ``repro.core``):
   MapSpec / sec / TargetExecutor   target regions with map(to/from/tofrom/alloc)
   strip_partition / offload_strips / recursive_offload / wavefront_offload
   TaskGraph / TaskNode / run_graph    task-graph IR the patterns lower into
+  GraphCheckpoint / GraphInterrupted / load_graph_checkpoint   resumable runs
   RoundRobin / LocalityAffinity / HeftPlacement / SloPlacement   placement policies
   Transport / HostFunnelTransport / PeerTransport   the wire, and collectives
   Topology                     racks and per-pair links of the peer fabric
@@ -30,9 +31,10 @@ from .runtime import ClusterRuntime, RuntimeConfig
 from .scheduler import (DagTask, PeerRef, offload_strips, recursive_offload,
                         strip_partition, wavefront_offload)
 from .target import MapSpec, Section, TargetExecutor, TargetFuture, sec
-from .taskgraph import (HeftPlacement, LocalityAffinity, PlacementContext,
-                        PlacementPolicy, RoundRobin, SloPlacement, TaskGraph,
-                        TaskNode, resolve_policy, run_graph)
+from .taskgraph import (GraphCheckpoint, GraphInterrupted, HeftPlacement,
+                        LocalityAffinity, PlacementContext, PlacementPolicy,
+                        RoundRobin, SloPlacement, TaskGraph, TaskNode,
+                        load_graph_checkpoint, resolve_policy, run_graph)
 from .topology import Topology
 from .transport import HostFunnelTransport, PeerTransport, Transport
 
@@ -47,6 +49,7 @@ __all__ = [
     "strip_partition", "offload_strips", "recursive_offload",
     "wavefront_offload", "DagTask", "PeerRef",
     "TaskGraph", "TaskNode", "run_graph", "resolve_policy",
+    "GraphCheckpoint", "GraphInterrupted", "load_graph_checkpoint",
     "PlacementPolicy", "PlacementContext", "RoundRobin", "LocalityAffinity",
     "HeftPlacement", "SloPlacement",
     "ClusterRuntime", "RuntimeConfig",

@@ -71,3 +71,26 @@ _END = object()
 
 def leaves(tree: Any) -> List[Any]:
     return flatten(tree)[0]
+
+
+def flatten_with_path(tree: Any) -> Tuple[List[Tuple[Tuple[Any, ...], Any]], TreeDef]:
+    """:func:`flatten` with each leaf's path: the dict keys and sequence
+    indices from the root to it (``jax.tree_util.tree_flatten_with_path``'s
+    keys, in the same leaf order)."""
+    paths: List[Tuple[Any, ...]] = []
+
+    def rec(x: Any, path: Tuple[Any, ...]) -> None:
+        if x is None:
+            return
+        if isinstance(x, dict):
+            for k in sorted(x):
+                rec(x[k], path + (k,))
+        elif type(x) in (list, tuple):
+            for i, v in enumerate(x):
+                rec(v, path + (i,))
+        else:
+            paths.append(path)
+
+    rec(tree, ())
+    flat, treedef = flatten(tree)
+    return list(zip(paths, flat)), treedef

@@ -34,7 +34,11 @@ its error for the device's next synchronizing command;
 command (EXEC, XFER_FROM): a blown deadline raises :class:`StragglerTimeout`,
 a :class:`DeviceFailure` that recovery treats like any other.
 
-Left for a later slice: elastic membership (ROADMAP item 11c).
+Membership is elastic: :meth:`DevicePool.add_device` appends a device (a
+new virtual share of the same card, with a stream and a worker of its own)
+and :meth:`DevicePool.remove_tail` stops and drops the last ones;
+``repro_torch.ft.rescale_pool`` drains a departing device's resident state
+first.
 """
 from __future__ import annotations
 
@@ -404,6 +408,7 @@ class DevicePool:
         self.table = table or GLOBAL_KERNEL_TABLE
         self.cost = CostModel(link)
         self.deadline_s = deadline_s
+        self._default_capacity = capacity_bytes   # for devices added later
         # blown deadlines by op (guarded by _trace_lock)
         self.straggler_timeouts: Dict[str, int] = {}
         self.health = HealthRegistry()
@@ -907,6 +912,92 @@ class DevicePool:
             fut), deps)
         fut.add_done_callback(lambda _f, i=i: self._queues[i].put(None))
         return fut
+
+    # -- elastic membership: nodes join and leave mid-job ---------------------
+    def add_device(self, hostname: Optional[str] = None,
+                   capacity_bytes: Optional[int] = None) -> int:
+        """Grow the pool by one device, placeable at once; returns its index.
+
+        The newcomer is a :class:`NodeDevice` on device 0's ``torch.device``
+        with a stream of its own.  Every per-device list grows by one entry,
+        and the device itself is appended last, so a reader that sizes its
+        loop by ``len(pool)`` never indexes state that is not there yet.
+        The declare-target globals are installed on it, and it starts with
+        a clean health record.
+        """
+        i = len(self.devices)
+        dev = NodeDevice(i, self.devices[0].device, hostname=hostname or f"vnode{i}",
+                         capacity_bytes=capacity_bytes)
+        self.mirrors.append(HostMirror())
+        self.locks.append(threading.RLock())
+        self.present.append(PresentTable(capacity_bytes=(
+            capacity_bytes if capacity_bytes is not None
+            else self._default_capacity)))
+        self.env_locks.append(threading.RLock())
+        self._queues.append(queue.SimpleQueue())
+        self._stopped.append(False)
+        self._async_errors.append(None)
+        self._last_write.append({})
+        self._readers.append({})
+        self._outstanding.append([])
+        self.stream_traces.append(collections.deque(maxlen=4096))
+        self.health.mark_healthy(i)
+        self.devices.append(dev)
+        t = threading.Thread(target=self._worker, args=(i,),
+                             name=f"omp-dev{i}", daemon=True)
+        t.start()
+        self._workers.append(t)
+        # declare-target globals exist on every device (paper §4.2)
+        for name, value in self._global_values.items():
+            h = self.alloc(i, value.shape, value.dtype, tag=f"global:{name}")
+            self.transfer_to(i, h, value, tag=f"global:{name}")
+            self.globals[name][i] = h
+        return i
+
+    def remove_tail(self, count: int) -> None:
+        """Shrink the pool by its last ``count`` devices.
+
+        Drain their present tables first (``repro_torch.ft.rescale_pool``
+        does): this only stops each departing device's worker once its
+        stream has run out, joins the thread, drops the devices' global
+        handles and health marks, and truncates every per-device list
+        (``devices`` first).  A failure still stashed on a departing device
+        is raised after the truncation, so the pool is consistent either way.
+        """
+        if count <= 0:
+            return
+        n = len(self.devices)
+        if count >= n:
+            raise ValueError("cannot remove every device from the pool")
+        keep = n - count
+        departing = list(range(keep, n))
+        futs = [self._stop_device(i) for i in departing]
+        for f in futs:
+            if f is not None:
+                f.result()
+        for i in departing:
+            self._workers[i].join()
+        stashed = [self._async_errors[i] for i in departing
+                   if self._async_errors[i] is not None]
+        for i in departing:
+            for handles in self.globals.values():
+                handles.pop(i, None)
+            self.health.mark_healthy(i)      # no stale mark outlives it
+        del self.devices[keep:]
+        del self.mirrors[keep:]
+        del self.locks[keep:]
+        del self.present[keep:]
+        del self.env_locks[keep:]
+        del self._queues[keep:]
+        del self._stopped[keep:]
+        del self._async_errors[keep:]
+        del self._last_write[keep:]
+        del self._readers[keep:]
+        del self._outstanding[keep:]
+        del self.stream_traces[keep:]
+        del self._workers[keep:]
+        if stashed:
+            raise stashed[0]
 
     # -- declare-target globals (paper §4.2 last ¶) ---------------------------
     def install_global(self, name: str, value: Any, tag: str = "") -> int:

@@ -23,9 +23,10 @@ Port of ``repro.core.taskgraph`` to the extent the main path needs it:
 * Hedging: with a straggler detector, a region that runs past its kernel's
   threshold races a duplicate on another device; the first copy to land
   wins and the loser's cost records are struck.
-
-Left for a later slice, raising ``NotImplementedError`` naming its ROADMAP
-item: checkpoints (item 11c).
+* Resumable runs: a :class:`GraphCheckpoint` saves the completed frontier at
+  wave boundaries in the reference's checkpoint format, and
+  ``run_graph(resume_from=...)`` skips what it holds, in this process or a
+  fresh one.
 """
 from __future__ import annotations
 
@@ -462,6 +463,78 @@ def _value_nbytes(val: Any) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Resumable runs: the frontier checkpoint
+# ---------------------------------------------------------------------------
+@dataclass
+class GraphCheckpoint:
+    """Periodic frontier checkpoint making a :func:`run_graph` resumable.
+
+    Every ``every_waves`` wave boundaries (and at the final wave) the
+    completed-node frontier — each finished task's host output value (in
+    peer mode fetched from its device once and cached across saves) and the
+    completion order — is written with
+    :func:`repro_torch.checkpoint.save_pytree` under ``directory`` as
+    ``step_<wave+1>``.  ``keep`` bounds retention (older steps are deleted;
+    None keeps all).  A coordinator that died restarts with
+    ``run_graph(resume_from=directory)``: completed nodes are skipped, their
+    values seeded from the snapshot and, in peer mode, entered again on
+    policy-placed devices, so the remaining waves run as they would have.
+
+    ``halt_after=k`` raises :class:`GraphInterrupted` after the ``k``-th
+    save: a coordinator killed at a wave boundary, on purpose (pinned peer
+    entries are released first, as on any abort).
+
+    Task outputs must be tensors or dicts of tensors, and task names must
+    not contain ``/``.  ``saves``, ``save_s`` and ``bytes_written`` count
+    the saves of every run that used this object: how many, their host
+    seconds (fetches included) and the bytes of the snapshots written.
+    """
+
+    directory: str
+    every_waves: int = 1
+    keep: Optional[int] = 2
+    halt_after: Optional[int] = None
+    saves: int = field(default=0, init=False, compare=False)
+    save_s: float = field(default=0.0, init=False, compare=False)
+    bytes_written: int = field(default=0, init=False, compare=False)
+
+
+class GraphInterrupted(RuntimeError):
+    """A :class:`GraphCheckpoint` ``halt_after`` fired: the run stopped on
+    purpose after saving; resume with ``run_graph(resume_from=...)``."""
+
+
+def load_graph_checkpoint(directory: str, *, step: Optional[int] = None
+                          ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Load a :class:`GraphCheckpoint` snapshot: ``(values, extra)``.
+
+    ``values`` maps each completed task to its output as CPU tensors, the
+    host values of a graph in this package; ``extra`` carries the
+    completion order (``"completed"``), the wave index and the graph tag.
+    The restore template is rebuilt from the manifest, so no live tree is
+    needed: the fresh-process resume.
+    """
+    from ..checkpoint.manager import (latest_step, read_manifest,
+                                      restore_pytree, torch_dtype)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(
+                f"no graph checkpoint steps under {directory!r}")
+    manifest = read_manifest(directory, step)
+    template: Dict[str, Any] = {}
+    for key, meta in manifest["leaves"].items():
+        parts = key.split("/")
+        node = template
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = TensorSpec(tuple(meta["shape"]), torch_dtype(meta["dtype"]))
+    tree, _, extra = restore_pytree(directory, step=step, template=template,
+                                    device="cpu")
+    return tree, dict(extra or {})
+
+
+# ---------------------------------------------------------------------------
 # The executor every pattern lowers into
 # ---------------------------------------------------------------------------
 def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
@@ -470,7 +543,7 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
               peer: bool = False, transport: Optional[Any] = None,
               tag: str = "graph", max_retries: int = 8,
               stragglers: Optional[Any] = None,
-              checkpoint: Optional[Any] = None,
+              checkpoint: Optional[GraphCheckpoint] = None,
               resume_from: Optional[str] = None) -> Dict[str, Any]:
     """Run a :class:`TaskGraph`: waves of ready nodes, policy-placed.
 
@@ -528,10 +601,16 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
     there by a SEND that queues behind the stalled command on that device's
     one worker, so such a hedge starts only once the stall is over: it can
     still beat its primary's own return, but it cannot save the stall.  ``stragglers=None`` keeps the blocking join: no hedge, no poll.
+
+    **Membership**: the pool's size and health are read again at every wave
+    boundary, so a device that ``rescale_pool`` added mid-graph takes work
+    from the next wave on, and a removed one leaves the candidate set.
+
+    **Resumable runs** (``checkpoint=`` / ``resume_from=``): see
+    :class:`GraphCheckpoint`.  A resumed run must pass the same graph,
+    ``tag`` and ``out_name`` as the checkpointed one; a checkpointed task
+    the graph lacks raises ``ValueError``.
     """
-    if checkpoint is not None or resume_from is not None:
-        raise NotImplementedError(
-            "run_graph(checkpoint=/resume_from=): ROADMAP item 11c")
     policy = resolve_policy(policy)
     pool = ex.pool
     if peer and transport is None:
@@ -959,16 +1038,80 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
 
     def _release_peer_entries() -> None:
         for dev, n in peer_entries:
-            if dev < len(pool):
+            if dev < len(pool):        # a shrink may have removed it
                 ex.exit_data(dev, n)
+
+    # -- resumable runs: the frontier snapshot, and the resume ----------------
+    completed: set = set()
+    host_snap: Dict[str, Any] = {}     # task -> host value, the snapshot cache
+    saves = [0]                        # this run's saves
+
+    def _save_checkpoint(wave_idx: int) -> None:
+        """Write the completed frontier after ``wave_idx``.  In peer mode
+        each output is fetched once (through :func:`_fetch_task`: bounded
+        retries, then a lineage replay) and cached across saves, so the
+        snapshot needs no live device state to restore."""
+        from ..checkpoint.manager import prune_steps, save_pytree
+        t0 = time.perf_counter()
+        for name in results:
+            if name not in host_snap:
+                host_snap[name] = _fetch_task(name) if peer else results[name]
+        snap = {n: host_snap[n] for n in results}
+        save_pytree(checkpoint.directory, wave_idx + 1, snap,
+                    extra={"completed": list(results), "wave": wave_idx,
+                           "graph_tag": tag, "out_name": out_name})
+        prune_steps(checkpoint.directory, checkpoint.keep)
+        saves[0] += 1
+        checkpoint.saves += 1
+        checkpoint.bytes_written += _value_nbytes(snap)
+        checkpoint.save_s += time.perf_counter() - t0
+        if checkpoint.halt_after is not None and saves[0] >= checkpoint.halt_after:
+            raise GraphInterrupted(
+                f"run_graph halted on purpose after save {saves[0]} "
+                f"(wave {wave_idx}); resume from {checkpoint.directory!r}")
+
+    if resume_from is not None:
+        snap, ck_extra = load_graph_checkpoint(resume_from)
+        order = [n for n in ck_extra.get("completed", sorted(snap)) if n in snap]
+        for idx, name in enumerate(order):
+            if name not in graph._nodes:
+                raise ValueError(
+                    f"checkpointed task {name!r} is not in this graph: a "
+                    f"resume needs the graph that was checkpointed")
+            value = snap[name]
+            completed.add(name)
+            host_snap[name] = value
+            ctx.out_bytes[name] = _value_nbytes(value)
+            if not peer:
+                results[name] = value
+                continue
+            # peer mode: the restored value enters a device data environment
+            # on a policy-placed device, so the remaining waves bind it as
+            # they would a live producer's output
+            t = graph.node(name)
+            dev = policy.place(ctx, t, idx, t.tag or f"{tag}:resume:{name}")
+            if not (0 <= dev < ctx.D):
+                raise ValueError(
+                    f"policy {policy.name!r} placed restored {name!r} on "
+                    f"device {dev} of {ctx.D}")
+            entry = f"{tag}:{name}"
+            ex.enter_data(dev, f"{tag}:resume", **{entry: value})
+            peer_entries[(dev, entry)] = True
+            producer[name] = (dev, entry)
+            entry_owner[entry] = name
+            ctx.home[name] = dev
+            ctx.replicas.setdefault(name, set()).add(dev)
+            results[name] = PeerRef(name, entry, dev)
 
     # the topological decomposition is the graph's own; cycles and missing
     # deps surface here, before anything is dispatched
-    for wave_idx, wave in enumerate(graph.waves()):
-        ready = [graph.node(n) for n in wave]
+    waves = graph.waves()
+    for wave_idx, wave in enumerate(waves):
+        ready = [graph.node(n) for n in wave if n not in completed]
         ctx.wave = wave_idx
         # wave boundary: advance blacklist probation, re-read membership and
-        # health, so a blacklisted device leaves the candidate set
+        # health, so a device joined mid-graph takes work from this wave on
+        # and a removed or blacklisted one leaves the candidate set
         pool.health.tick_wave()
         _refresh_membership()
         D = ctx.D
@@ -1031,6 +1174,12 @@ def run_graph(ex: TargetExecutor, graph: TaskGraph, *,
                 _join_recovering(records)
                 for p in records:
                     _done(p["t"], p["out"])
+            if checkpoint is not None and ready and (
+                    (wave_idx + 1) % max(1, checkpoint.every_waves) == 0
+                    or wave_idx == len(waves) - 1):
+                # inside the try: a halt takes the teardown below, which
+                # releases the pinned peer entries as any abort does
+                _save_checkpoint(wave_idx)
         except BaseException:
             if peer:
                 # failed run: nothing will fetch the resident outputs.  Safe

@@ -1101,3 +1101,51 @@ def test_capped_sparselu_equals_uncapped_on_the_card(cuda_device):
     assert sum(m["evictions"] for m in mem.values()) >= 1
     assert sum(m["refetches"] for m in mem.values()) >= 1
     assert torch.equal(got[None], got[4 * B * B * 4])
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A bf16 and fp32 tree on the card saves (copied to the host first) and
+    restores onto the card bit for bit."""
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(64, 80, generator=g, device=cuda_device),
+            "b": torch.randn(80, generator=g, device=cuda_device).to(torch.bfloat16),
+            "n": {"count": torch.tensor(7, dtype=torch.int32, device=cuda_device)}}
+    save_pytree(str(tmp_path), 3, tree)
+    got, step, _ = restore_pytree(str(tmp_path), template=tree, device=cuda_device)
+    assert step == 3
+    for k, want in (("w", tree["w"]), ("b", tree["b"]), ("count", tree["n"]["count"])):
+        have = got["n"]["count"] if k == "count" else got[k]
+        assert have.device == want.device and have.dtype == want.dtype
+        assert torch.equal(have.view(-1).view(torch.uint8), want.view(-1).view(torch.uint8))
+
+
+def test_added_device_gets_its_own_stream_and_runs_k2(cuda_device):
+    """``add_device`` on a card pool: the newcomer's stream differs from
+    every other device's, and a bmod region there launches K2 (cp_async):
+    the same bits as a launch on the default stream, and its plain version's
+    values within the bmod tolerance."""
+    table = KernelTable()
+    table.register("bmod", lambda a, l, u: {"out": bmod_op(a, l, u)})
+    pool = DevicePool.virtual(2, table=table, device=cuda_device)
+    ex = TargetExecutor(pool)
+    try:
+        new = pool.add_device()
+        streams = [d.stream for d in pool.devices]
+        assert new == 2 and streams[2] is not None
+        assert len({s.cuda_stream for s in streams}) == 3
+        g = torch.Generator().manual_seed(1)
+        a, l, u = (torch.randn(128, 128, generator=g) for _ in range(3))
+        before = (k2.launches.count, k2.path_launches["cp_async"].count)
+        out = ex.target("bmod", new, MapSpec(to={"a": a, "l": l, "u": u},
+                                             from_={"out": TensorSpec((128, 128),
+                                                                      torch.float32)}))
+        assert (k2.launches.count, k2.path_launches["cp_async"].count) == \
+            (before[0] + 1, before[1] + 1)
+        on_card = [t.to(cuda_device) for t in (a, l, u)]
+        assert torch.equal(out["out"], bmod_cuda(*on_card).cpu())
+        tol = TOL[torch.float32]
+        torch.testing.assert_close(out["out"], bmod_ref(*on_card).cpu(), rtol=tol, atol=tol)
+    finally:
+        ex.close()
+        pool.stop_all()

@@ -710,15 +710,3 @@ def test_health_registry_threshold_and_fallback():
     assert reg.healthy(3) == [0, 1, 2]
     reg.mark_healthy(1)
     assert reg.failures(1) == 0 and 1 not in reg.blacklist
-
-
-def test_graph_options_left_for_later_items_raise():
-    pool = _pool(T, 2, _table(T))
-    ex = T.TargetExecutor(pool)
-    try:
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            T.run_graph(ex, _diamond(T), checkpoint=object())
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            T.run_graph(ex, _diamond(T), resume_from="somewhere")
-    finally:
-        pool.stop_all()

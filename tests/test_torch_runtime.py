@@ -3,6 +3,7 @@ on both packages: equal results, identical byte counters, and the same
 ``op@device`` command traces — exact for serial dispatch, per device as
 multisets for ``nowait`` (host threads may interleave issue order)."""
 import collections
+import os
 
 import jax
 import jax.numpy as jnp
@@ -114,7 +115,7 @@ def test_stream_orders_producer_before_consumer():
         rt.shutdown()
 
 
-def test_unported_options_raise_not_implemented():
+def test_unported_options_raise_not_implemented(tmp_path):
     # the fabric (ROADMAP item 9) is ported: direct mode and peer graphs run
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2, comm_mode="direct"),
                           device="cpu")
@@ -136,8 +137,15 @@ def test_unported_options_raise_not_implemented():
     rt = T.ClusterRuntime(T.RuntimeConfig(n_virtual=2), table=_table(T),
                           device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11c"):
-            T.wavefront_offload(rt.ex, [], peer=True, checkpoint=object())
+        # checkpoints (ROADMAP item 11c) are ported: a one-task graph saves
+        # its frontier after its one wave
+        x = torch.arange(4, dtype=torch.float32)
+        one = [T.DagTask("a", "add_arrays", (), lambda dv: T.MapSpec(
+            to={"a": x, "b": x}, from_={"c": T.TensorSpec((4,), torch.float32)}))]
+        ck = T.GraphCheckpoint(str(tmp_path))
+        res = T.wavefront_offload(rt.ex, one, out_name="c", checkpoint=ck)
+        assert torch.equal(res["a"], 2 * x) and ck.saves == 1
+        assert sorted(os.listdir(tmp_path)) == ["step_00000001"]
         assert T.wavefront_offload(rt.ex, [], policy="heft") == {}
         assert isinstance(T.resolve_policy("heft"), T.HeftPlacement)
         with pytest.raises(NotImplementedError, match="ROADMAP item 12"):

@@ -576,8 +576,7 @@ def test_straggler_threshold_ignores_cold_default():
                                     baseline={"axpy": 1e-2})
         assert det2.threshold("axpy") == pytest.approx(3.0 * 1e-2)
         assert not det2.should_hedge("axpy", 0.02) and det2.should_hedge("axpy", 0.04)
-    assert TF.__all__ == [n for n in JF.__all__
-                          if n not in ("elastic_shardings", "rescale_pool")]
+    assert TF.__all__ == [n for n in JF.__all__ if n != "elastic_shardings"]
 
 
 # ---------------------------------------------------------------------------
