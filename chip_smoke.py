@@ -84,7 +84,13 @@ runs, printing one JSON line per phase:
    updated on the departing devices (``rescale_pool``) followed by K=16 on
    the survivors, K=16 grown from 2 to 4 devices mid-graph, and mandelbrot
    strips on a pool shrunk from 8 to 4 and grown back: each equal to the
-   serial run bit for bit; then BOTS fib(21) (``recursive_offload``, one
+   serial run bit for bit; then calibration: K=16's four kernels timed on a
+   D=4 peer runtime (``ClusterRuntime.calibrate``; each seed on the busy
+   clock of an EXEC, beside bmod's CUDA-event time) and its funnel and peer
+   links fitted, the profile saved, reloaded by a fresh runtime (a D=2
+   profile refused as stale) and K=16 run under
+   ``HeftPlacement(estimates="calibrated")``, equal to the serial kernel bit
+   for bit; then BOTS fib(21) (``recursive_offload``, one
    busy-loop kernel launch per leaf) and alignment (128 queries x 32
    references, the bank resident, query strips) on 8 virtual devices, each
    equal to its serial run bit for bit, after the busy-loop kernel against
@@ -95,7 +101,14 @@ runs, printing one JSON line per phase:
    flash attention on each layer; 31 decodes: flash decode on each layer);
    then the kernel route against the plain route on the same weights
    (prefill and decode logits), and a 2-layer fp32 model at full width
-   whose greedy tokens must be equal on both routes;
+   whose greedy tokens must be equal on both routes; then pool-mode serving
+   (``ServeEngine(runtime=...)``) of the same weights on 2 virtual devices:
+   8 requests under SLO, under round-robin, and under round-robin with each
+   device's capacity at the weights + 1.5 caches (spill and refetch), then
+   4 with ``migrate_every=1`` (a cache migrates), each request a prefill
+   TaskNode (K4) and a decode TaskNode a step (K3) at B = 1 on a device's
+   worker thread, every run's tokens equal to the local engine's at
+   ``batch=1`` (wave mode, eager) bit for bit;
 7. MoE serving: moonshot-v1-16b-a3b at full width and depth (48 layers,
    64 experts top-6, 27.7 B parameters, bf16, random weights from seed 0)
    with the kernels on: 8 requests of 512 tokens in continuous mode, then 4
@@ -141,8 +154,9 @@ Every kernel's launch count, and K1's, K2's, K3's, K4's and K6's counts per
 path, are set to 0 just before a main-path phase and read just after; a
 kernel of the path that did not launch fails the run, and so does a
 mandelbrot K1 launch off the ``chunked`` path, a sparselu K2 launch off the
-``cp_async`` path (re-executions under faults and the resumed child's
-launches included), a serve K3 launch off the ``split`` path, a bf16
+``cp_async`` path (re-executions under faults, the resumed child's and
+the calibration's timed launches included), a serve K3 launch off the
+``split`` path (pool-mode decodes included), a bf16
 K4 launch off the ``wgmma`` path, an MoE prefill K6 launch off ``wgmma`` or a
 decode K6 launch off ``small_c``.
 Then it prints the ``{"kernels": [...]}`` line (times, bounds, launches) and,
@@ -236,6 +250,15 @@ REPLAY_REPS = 10
 BOTS_DEVICES = 8
 FIB_CHECK_N = (8, 15)
 SERVE_ARCH, SERVE_BATCH, SERVE_MAX_LEN, SERVE_PROMPT = "minitron-4b", 4, 1024, 512
+# pool-mode serving (serve_pool): minitron-4b on this many virtual devices,
+# budgets cycled over the 8 requests; the migration run's (prompt, budget)
+# pairs, in admission order: round-robin puts both long ones on device 0,
+# and each prompt's local budget (POOL_BUDGETS) covers its budget here
+POOL_DEVICES = 2
+POOL_BUDGETS = (8, 16, 24, 32)
+POOL_MIGRATION = ((3, 32), (0, 4), (7, 32), (4, 4))
+# calibration: reps and warm-ups of each kernel's timed call
+CALIB_REPS, CALIB_WARMUP = 5, 2
 SERVE_BUDGETS = (16, 32, 48, 64)        # max_new_tokens, cycled over the requests
 WAVE_BUDGET = 32
 # kernel route against plain route, bf16 logits: 8-bit mantissas, and the
@@ -1362,6 +1385,14 @@ def _placement_policy(name: str):
             "slo": lambda: SloPlacement(default_task_s=5e-6, use_observed=False)}[name]()
 
 
+def _placement_digest(cost) -> str:
+    """A digest of a run's placement decisions, (region tag, device) sorted:
+    two runs with equal digests placed every task alike."""
+    import hashlib
+    pairs = sorted((p.task, p.device) for p in cost.placements)
+    return hashlib.sha256(repr(pairs).encode()).hexdigest()[:16]
+
+
 def _placed_sparselu(torch, mat, ser, policy: str, cap=None, profile: bool = False):
     """One K=16 sparselu wavefront over the peer fabric (``comm_mode=
     "direct"``) under ``policy``, optionally with each device's present
@@ -1383,6 +1414,7 @@ def _placed_sparselu(torch, mat, ser, policy: str, cap=None, profile: bool = Fal
         launches, paths = k2.launches.count, _path_counts(k2)
         s = rt.cost.summary()
         report = rt.cost.placement_report()
+        digest = _placement_digest(rt.cost)
         mem = rt.memory_report()
         used = len({c.device for c in rt.cost.compute})
         busy = (device_busy(torch, lambda: bl.wavefront(rt, mat, peer=True, policy=pol))
@@ -1396,7 +1428,7 @@ def _placed_sparselu(torch, mat, ser, policy: str, cap=None, profile: bool = Fal
            "bytes_from": s["bytes_from"], "bytes_peer": s["bytes_peer"],
            "bmod_launches": launches, "bmod_path_launches": paths,
            "max_abs_diff_vs_serial": float((lu - ser).abs().max()),
-           "placements": len(report),
+           "placements": len(report), "placement_digest": digest,
            "observed_device_ok": all(r["observed_device_ok"] for r in report),
            "cold_predictions": s["cold_predictions"]}
     if cap is not None:
@@ -2396,6 +2428,148 @@ def phase_checkpoint_elastic(torch, ser, lu_rows: list, placed_rows: list, mande
     return k1_launches, k1_paths, rows
 
 
+def phase_calibration(torch, ser, placed_rows: list, k2_row: dict) -> list:
+    """Calibration on the card (``ClusterRuntime.calibrate``): a D=4 peer
+    runtime with sparselu's K=16, B=128 table times lu0, fwd, bdiv and bmod
+    on 128 x 128 fp32 blocks (``CALIB_WARMUP`` + ``CALIB_REPS`` calls each,
+    on device 0's stream and busy clock: the span an EXEC records) and fits
+    the funnel and the peer link; the profile is saved, and a fresh runtime
+    loads it and runs K=16 under ``HeftPlacement(estimates="calibrated")``.
+
+    Gated: no cost record of the calibration's own traffic is left; the
+    loaded profile equals the live one; a D=2 profile is refused with
+    ``StaleProfileError``; the calibrated run equals the serial kernel bit
+    for bit with every K2 launch on cp_async and no cold prediction, and
+    where it placed every task as the placement phase's HEFT at 5 us did,
+    its byte counters equal that run's.  Reported: each kernel's seed beside
+    bmod's CUDA-event time (phase 2), each link's fit, FLOPs, bytes and
+    intensity per kernel, bmod's roofline fraction, the calibrated wall
+    beside HEFT at 5 us, and the run's modeled makespan priced on the
+    paper's Ethernet and on the measured links.  Returns the phase's K2
+    rows (their launches join the kernel line's)."""
+    import tempfile
+    from repro_torch.bots import sparselu as bl
+    from repro_torch.core import (PAPER_ETHERNET, ClusterRuntime, HeftPlacement,
+                                  RuntimeConfig, StaleProfileError)
+    from repro_torch.kernels.block_lu import block_lu as k2
+    t_phase = time.perf_counter()
+    mat = bl._matrix(LU_K, LU_B)
+    g = torch.Generator().manual_seed(0)
+
+    def block(dominant=False):
+        b = torch.randn(LU_B, LU_B, generator=g)
+        return b + LU_B * torch.eye(LU_B) if dominant else b
+
+    operands = {"lu0": (block(True),), "fwd": (block(True), block()),
+                "bdiv": (block(True), block()), "bmod": (block(), block(), block())}
+    records = ("transfers", "peers", "compute", "events", "placements", "adjustments")
+
+    def runtime(n):
+        return ClusterRuntime(RuntimeConfig(n_virtual=n, comm_mode="direct"),
+                              table=bl._make_table(LU_K), device="cuda")
+
+    _reset_counts(k2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_calib_") as pdir:
+        rt = runtime(LU_DEVICES)
+        try:
+            t0 = time.perf_counter()
+            prof = rt.calibrate(operands, reps=CALIB_REPS, warmup=CALIB_WARMUP,
+                                save_dir=pdir)
+            calibrate_s = time.perf_counter() - t0
+            left = {k: len(getattr(rt.cost, k)) for k in records}
+        finally:
+            rt.shutdown()
+        path = os.path.join(pdir, f"{prof.host['hostname']}.json")
+        rt = runtime(2)
+        try:
+            prof2 = rt.calibrate({"bmod": operands["bmod"]}, reps=2, warmup=1,
+                                 sizes=(1 << 14, 1 << 20), load=False)
+        finally:
+            rt.shutdown()
+        calib_launches, calib_paths = k2.launches.count, _path_counts(k2)
+        rt = runtime(LU_DEVICES)
+        try:
+            loaded = rt.load_calibration(path)
+            same_profile = loaded.to_dict() == prof.to_dict()
+            try:
+                rt.load_calibration(prof2)
+                stale = None
+            except StaleProfileError as e:
+                stale = str(e)
+            _reset_counts(k2)
+            t0 = time.perf_counter()
+            res = bl.wavefront(rt, mat, peer=True,
+                               policy=HeftPlacement(estimates="calibrated"))
+            wall = time.perf_counter() - t0
+            launches, paths = k2.launches.count, _path_counts(k2)
+            s = rt.cost.summary()
+            digest = _placement_digest(rt.cost)
+            used = len({c.device for c in rt.cost.compute})
+            roof = {r["kernel"]: r for r in rt.cost.roofline_summary()}
+            makespan = {"measured_links": rt.cost.makespan(),
+                        "measured_links_overlap": rt.cost.makespan(overlap=True)}
+            rt.cost.link, rt.cost.peer_link = PAPER_ETHERNET, None
+            makespan.update({"paper_ethernet": rt.cost.makespan(),
+                             "paper_ethernet_overlap": rt.cost.makespan(overlap=True)})
+        finally:
+            rt.shutdown()
+    heft5 = next(r for r in placed_rows
+                 if r["policy"] == "heft-comm" and r["capacity_bytes"] is None)
+    diff = float((bl.assemble(res, LU_K) - ser).abs().max())
+    same_placements = digest == heft5["placement_digest"]
+    counters = {k: s[k] for k in ("bytes_to", "bytes_from", "bytes_peer")}
+    heft5_counters = {k: heft5[k] for k in counters}
+    row = {"phase": "calibration", "K": LU_K, "B": LU_B, "devices": LU_DEVICES,
+           "fabric": "peer", "calibrate_s": calibrate_s, "host": prof.host,
+           "cost_records_left": left, "loaded_equals_live": same_profile,
+           "d2_profile_refused": stale,
+           "calibration_bmod_launches": calib_launches,
+           "calibration_bmod_path_launches": calib_paths,
+           "kernels": {k: {"seed_s": kp.seconds, "min_s": kp.min_s, "max_s": kp.max_s,
+                           "reps": kp.reps, "flops": kp.flops,
+                           "bytes_accessed": kp.bytes_accessed, "intensity": kp.intensity,
+                           "observed_s": roof[k]["observed_s"],
+                           "model_ratio": roof[k]["model_ratio"],
+                           "roofline_fraction": roof[k]["roofline_fraction"],
+                           "bound": roof[k]["bound"]}
+                       for k, kp in prof.kernels.items()},
+           "bmod_event_ms": k2_row["ms"],
+           "bmod_seed_over_event": prof.kernels["bmod"].seconds / (k2_row["ms"] * 1e-3),
+           "skipped_kernels": prof.skipped_kernels,
+           "links": {k: {"bandwidth_Bps": lp.bandwidth_Bps, "latency_s": lp.latency_s,
+                         "samples": len(lp.samples)} for k, lp in prof.links.items()},
+           "wall_s": wall, "heft_5us_wall_s": heft5["wall_s"],
+           "wall_ratio_vs_heft_5us": wall / heft5["wall_s"], "devices_used": used,
+           "same_placements_as_heft_5us": same_placements, **counters,
+           "heft_5us_counters": heft5_counters, "cold_predictions": s["cold_predictions"],
+           "modeled_makespan_s": makespan, "bmod_launches": launches,
+           "bmod_path_launches": paths, "max_abs_diff_vs_serial": diff,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if any(left.values()):
+        fail(f"calibration left cost records behind: {left}")
+    if not same_profile:
+        fail("the loaded calibration profile differs from the live one")
+    if stale is None:
+        fail("a D=2 calibration profile was not refused by the D=4 runtime")
+    want = CALIB_WARMUP + CALIB_REPS + 1 + 2
+    if calib_launches != want or calib_paths["cp_async"] != want:
+        fail(f"calibration: bmod launched {calib_launches} times ({calib_paths}); "
+             f"expected {want}, every one on cp_async")
+    expect = sum(m * m for m in range(LU_K))
+    if launches != expect or paths["cp_async"] != launches:
+        fail(f"calibrated HEFT: bmod launched {launches} times ({paths}); expected "
+             f"{expect}, every one on cp_async")
+    if diff != 0.0:
+        fail(f"calibrated HEFT: sparselu differs from the serial kernel by {diff}")
+    if s["cold_predictions"] != 0:
+        fail(f"calibrated HEFT made {s['cold_predictions']} cold predictions")
+    if same_placements and counters != heft5_counters:
+        fail(f"calibrated HEFT placed as HEFT at 5 us but moved {counters}, "
+             f"not {heft5_counters}")
+    return [{"bmod_launches": calib_launches, "bmod_path_launches": calib_paths}, row]
+
+
 def phase_fib_alignment(torch, peaks):
     """BOTS fib and alignment at the reference's "large" size on
     ``BOTS_DEVICES`` virtual devices, each against its serial run (bit for
@@ -2624,6 +2798,156 @@ def phase_serve(torch):
         fail(f"kernel route disagrees with the plain route: {route}")
     if not row["fp32_2layer_tokens_equal"]:
         fail("fp32 kernel-route tokens differ from the plain route's")
+    return runs
+
+
+def phase_serve_pool(torch):
+    """Pool-mode serving (``ServeEngine(runtime=...)``): minitron-4b at full
+    width (bf16, the serve phase's random weights from seed 0) on a
+    ``POOL_DEVICES``-device runtime, each request a prefill TaskNode (K4 per
+    layer, B = 1, S = 512) and a decode TaskNode a step (K3 per layer, B = 1)
+    on a virtual device's worker thread and stream, over device-resident
+    weights (one copy per device) and one-sequence caches.  Runs: (a) 8
+    requests under SLO; (b) under round-robin; (c) round-robin with each
+    device's capacity at the weights' bytes + 1.5 caches (cold caches spill
+    and refetch); (d) ``POOL_MIGRATION``'s 4 requests under round-robin with
+    ``migrate_every=1``; (e) the local engine on the same weights, wave mode
+    at ``batch=1`` on the eager route (the same B = 1 shapes: an unpadded
+    prefill, then B = 1 decodes).  Each run's launch counts are set to 0
+    just before and read just after.
+
+    Gated: (a), (b), (c) and (e) give equal tokens, (d) (e)'s on its
+    requests; every request its full budget; (c) at least one eviction and
+    one refetch; (d) at least one migration; every K4 launch ``wgmma`` and
+    every K3 ``split``, K4 once a layer per request and K3 once a layer per
+    decode; each pool's final ``sync()`` raises nothing.  Reported: tokens/s,
+    prefill and decode seconds and bytes of each run, evictions and
+    refetches, peak card memory, and the share of tokens equal to a local
+    batch-4 captured continuous run's (other GEMM shapes may move bf16
+    rounding: not gated)."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClusterRuntime, KernelTable, RuntimeConfig
+    from repro_torch.kernels.flash_attention import flash_attention as k4mod
+    from repro_torch.kernels.flash_decode import flash_decode as k3mod
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH).replace(use_kernels=True)
+    L = cfg.n_layers
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    weights_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).tolist() for _ in range(8)]
+    reqs = [Request(i, p, max_new_tokens=POOL_BUDGETS[i % len(POOL_BUDGETS)])
+            for i, p in enumerate(prompts)]
+    mig_reqs = [Request(j, prompts[j], max_new_tokens=n) for j, n in POOL_MIGRATION]
+    mods = (k4mod, k3mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def measured(eng, rs, name, **extra):
+        _reset_counts(*mods)
+        t0 = time.perf_counter()
+        res = eng.serve(rs)
+        if eng.runtime is not None:
+            eng.runtime.pool.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(r.tokens) for r in res.values())
+        run = {"run": name, "requests": len(rs), "wall_s": wall, "new_tokens": tokens,
+               "tokens_per_s": tokens / wall,
+               "prefill_s": sum(r.prefill_s for r in res.values()),
+               "decode_s": sum(r.decode_s for r in res.values()),
+               "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
+                                   and not res[r.rid].timed_out for r in rs),
+               "expected_k4": L * len(rs),
+               "expected_k3": L * sum(r.max_new_tokens - 1 for r in rs),
+               **_kernel_counts(mods), **extra}
+        return run, {rid: r.tokens for rid, r in res.items()}
+
+    def pool_run(name, rs, policy, cap=None, **kw):
+        # a table of its own: the serve entries go when the runtime does
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=POOL_DEVICES, device_capacity_bytes=cap),
+                            table=KernelTable(), device="cuda")
+        try:
+            eng = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH,
+                                                         max_len=SERVE_MAX_LEN, **kw),
+                              runtime=rt, policy=policy)
+            run, tokens = measured(eng, rs, name, policy=policy, capacity_bytes=cap)
+            s = rt.cost.summary()
+            mem = rt.memory_report()
+            run.update({"bytes_to": s["bytes_to"], "bytes_from": s["bytes_from"],
+                        "bytes_peer": s["bytes_peer"], "migrations": eng.migrations,
+                        "evictions": sum(m["evictions"] for m in mem.values()),
+                        "refetches": sum(m["refetches"] for m in mem.values()),
+                        "cache_bytes": sum(t.nbytes for t in _leaves(eng._ctpl)),
+                        "execs_by_device": [sum(1 for c in rt.pool.trace
+                                                if c.op == "EXEC" and c.device == d)
+                                            for d in range(POOL_DEVICES)]})
+        finally:
+            rt.shutdown()
+        del rt, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run, tokens
+
+    runs, toks = {}, {}
+    runs["slo"], toks["slo"] = pool_run("slo", reqs, "slo")
+    runs["round_robin"], toks["round_robin"] = pool_run("round_robin", reqs, "round-robin")
+    cap = weights_bytes + int(1.5 * runs["slo"]["cache_bytes"])
+    runs["capped"], toks["capped"] = pool_run("capped", reqs, "round-robin", cap=cap)
+    runs["migration"], toks["migration"] = pool_run("migration", mig_reqs, "round-robin",
+                                                    migrate_every=1)
+    peak = torch.cuda.max_memory_allocated()
+    local = ServeEngine(model, params, ServeConfig(batch=1, max_len=SERVE_MAX_LEN,
+                                                   mode="wave"), eager=True)
+    runs["local_b1"], toks["local_b1"] = measured(local, reqs, "local_b1")
+    captured = ServeEngine(model, params, ServeConfig(batch=SERVE_BATCH,
+                                                      max_len=SERVE_MAX_LEN))
+    runs["local_b4_captured"], toks["local_b4_captured"] = measured(
+        captured, reqs, "local_b4_captured")
+    del local, captured, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref = toks["local_b1"]
+    agree = sum(a == b for rid in ref for a, b in zip(ref[rid], toks["local_b4_captured"][rid]))
+    mig_equal = all(toks["migration"][r.rid] == ref[r.rid][:r.max_new_tokens]
+                    for r in mig_reqs)
+    row = {"phase": "serve_pool", "arch": SERVE_ARCH, "layers": L, "d_model": cfg.d_model,
+           "devices": POOL_DEVICES, "weights_bytes": weights_bytes, "capacity_bytes": cap,
+           "runs": runs, "peak_allocated_bytes": peak,
+           "pool_tokens_equal_local_b1": {n: toks[n] == ref
+                                          for n in ("slo", "round_robin", "capped")},
+           "migration_tokens_equal_local_b1": mig_equal,
+           "local_b4_captured_agreement": agree / sum(len(t) for t in ref.values()),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    for name, r in runs.items():
+        if not r["full_budgets"]:
+            fail(f"serve_pool {name}: a request did not get its full token budget")
+        if name == "local_b4_captured":
+            continue
+        if (r["flash_attention_launches"], r["flash_decode_launches"]) != \
+                (r["expected_k4"], r["expected_k3"]):
+            fail(f"serve_pool {name}: K4/K3 launched {r['flash_attention_launches']}/"
+                 f"{r['flash_decode_launches']} times, expected {r['expected_k4']}/"
+                 f"{r['expected_k3']}")
+    _check_k4_paths(f"{SERVE_ARCH} pool", runs)
+    _check_k3_paths(f"{SERVE_ARCH} pool", runs)
+    if not all(row["pool_tokens_equal_local_b1"].values()):
+        fail(f"serve_pool: pool tokens differ from the local batch=1 run's: "
+             f"{row['pool_tokens_equal_local_b1']}")
+    if not (runs["capped"]["evictions"] >= 1 and runs["capped"]["refetches"] >= 1):
+        fail(f"serve_pool capped: {runs['capped']['evictions']} evictions, "
+             f"{runs['capped']['refetches']} refetches; expected at least one of each")
+    if runs["migration"]["migrations"] < 1 or not mig_equal:
+        fail(f"serve_pool migration: {runs['migration']['migrations']} migrations, "
+             f"tokens equal the local run's: {mig_equal}")
     return runs
 
 
@@ -3099,17 +3423,19 @@ def main() -> int:
                                                          mandel_img, mandel_s)
     ck_k1, ck_paths, ck_rows = phase_checkpoint_elastic(torch, lu_ser, lu_rows, placed_rows,
                                                         mandel_img)
+    cal_rows = phase_calibration(torch, lu_ser, placed_rows, k2)
     del mandel_img
     for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths),
                             (strag_k1, strag_paths), (ck_k1, ck_paths)):
         k1_launches += launches
         k1_paths = {p: k1_paths.get(p, 0) + paths.get(p, 0) for p in {*k1_paths, *paths}}
-    lu_rows += placed_rows + fault_rows + strag_rows + ck_rows
+    lu_rows += placed_rows + fault_rows + strag_rows + ck_rows + cal_rows
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
                 for p in lu_rows[0]["bmod_path_launches"]}
     kbusy, kbusy_launches = phase_fib_alignment(torch, peaks)
-    serve_runs = [*phase_serve(torch).values(), *phase_serve_moe(torch).values()]
+    serve_runs = [*phase_serve(torch).values(), *phase_serve_pool(torch).values(),
+                  *phase_serve_moe(torch).values()]
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
         serve_runs += phase_serve_state(torch, arch, n).values()
 

@@ -17,7 +17,11 @@ Public API (counterparts of ``repro.core``):
                                transport recover from (injection: repro_torch.ft)
   StragglerTimeout             a blown command deadline or transport op
                                timeout, recovered like any DeviceFailure
+  CalibrationProfile / calibrate   measured kernel/link costs seeding the model
 """
+from .calibrate import (CalibrationProfile, KernelProfile, LinkProfile,
+                        RegionMarker, StaleProfileError, calibrate,
+                        fit_alpha_beta, profile_kernels, profile_links)
 from .costmodel import (CostModel, DEFAULT_KERNEL_TIME_S, Event, LinkModel,
                         PAPER_ETHERNET, PeerRecord, PlacementRecord,
                         TimelineSpan)
@@ -56,4 +60,7 @@ __all__ = [
     "Transport", "HostFunnelTransport", "PeerTransport", "Topology",
     "CostModel", "LinkModel", "Event", "PeerRecord", "PlacementRecord",
     "TimelineSpan", "PAPER_ETHERNET", "DEFAULT_KERNEL_TIME_S",
+    "CalibrationProfile", "KernelProfile", "LinkProfile", "RegionMarker",
+    "StaleProfileError", "calibrate", "fit_alpha_beta",
+    "profile_kernels", "profile_links",
 ]

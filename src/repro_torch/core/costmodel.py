@@ -17,12 +17,12 @@ pair's own link (intra-rack vs spine), and the spine's share is counted in
 ``bytes_peer_cross_rack``.
 
 Cost-driven placement reads per-kernel time estimates from the live
-observations (:meth:`CostModel.kernel_time`) and logs each decision
-(:meth:`CostModel.record_placement`, :meth:`CostModel.placement_report`).
-
-Left for later slices: the TPU roofline constants (the port measures on the
-card instead), calibration profiles and the roofline report (ROADMAP item
-12).
+observations, else a calibration profile's seeds
+(:meth:`CostModel.kernel_time`, :meth:`CostModel.load_profile`), and logs
+each decision (:meth:`CostModel.record_placement`,
+:meth:`CostModel.placement_report`).  The roofline report
+(:meth:`CostModel.roofline_summary`) prices each kernel against one H100
+SXM's roofs; the reference's TPU v5e constants have no meaning here.
 """
 from __future__ import annotations
 
@@ -52,7 +52,10 @@ PAPER_ETHERNET = LinkModel("gbit-ethernet", 125e6, 50e-6)
 # prediction (``summary()["cold_predictions"]``).
 DEFAULT_KERNEL_TIME_S = 1e-3
 
-_ITEM_12 = "calibration profiles and the roofline report are ROADMAP item 12"
+# The roofline report's roofs: one H100 SXM (NVIDIA's data sheet, dense, no
+# sparsity), the figures chip_smoke.py's bounds use.
+H100_SXM_PEAK_FLOPS_BF16 = 989e12       # 989 TFLOP/s bf16 on the tensor cores
+H100_SXM_HBM_BW_Bps = 3.35e12           # 3.35 TB/s
 
 
 @dataclass
@@ -140,8 +143,9 @@ class CostModel:
         # optional Topology: each directed peer pair is timed on ITS link
         # and cross-rack traffic is counted apart (bytes_peer_cross_rack)
         self.topology = topology
-        # a calibration profile seeds kernel_time in the reference; loading
-        # one is ROADMAP item 12, so the port's stays None
+        # a CalibrationProfile installed by load_profile(): seeds
+        # kernel_time until live observations land, and replaced link /
+        # peer_link / the topology's tiers with measured fits
         self.profile = None
         # kernel_time estimates that fell to the default (blind placements)
         self.cold_predictions = 0
@@ -161,7 +165,7 @@ class CostModel:
             self.peers.clear()
             self.events.clear()
             self.placements.clear()
-            self.cold_predictions = 0
+            self.cold_predictions = 0   # the installed profile survives reset
 
     # -- accounting ---------------------------------------------------------
     def record_transfer(self, direction: str, device: int, nbytes: int,
@@ -210,13 +214,12 @@ class CostModel:
         with self._lock:
             return sum(1 for c in self.compute if c.kernel == kernel)
 
-    def placement_report(self, *, roofline: bool = False) -> List[Dict[str, object]]:
+    def placement_report(self, *, roofline: bool = False):
         """Predicted-vs-observed rows for cost-driven placements: each
         :class:`PlacementRecord` joined with the compute records that ran
         under its region tag (``predicted_s`` is a policy clock value, not a
-        duration).  ``roofline=True`` is ROADMAP item 12."""
-        if roofline:
-            raise NotImplementedError(f"placement_report(roofline=True): {_ITEM_12}")
+        duration).  ``roofline=True`` returns ``{"placements": rows,
+        "roofline": self.roofline_summary()}``."""
         with self._lock:
             placements = list(self.placements)
             compute = list(self.compute)
@@ -229,10 +232,83 @@ class CostModel:
                 "observed_s": sum(c.seconds for c in obs),
                 "observed_device_ok": all(c.device == p.device for c in obs),
             })
+        if roofline:
+            return {"placements": report, "roofline": self.roofline_summary()}
         return report
 
-    def load_profile(self, profile, **kw) -> None:
-        raise NotImplementedError(f"CostModel.load_profile: {_ITEM_12}")
+    def roofline_summary(self) -> List[Dict[str, object]]:
+        """Per-kernel predicted-vs-observed roofline rows.
+
+        For every kernel with live observations and/or a calibration-profile
+        entry: the calibrated seed vs the mean observed seconds
+        (``model_ratio`` = observed/calibrated), the counted FLOPs, bytes
+        and arithmetic intensity, the achieved FLOP/s, and the roof at that
+        intensity, ``min(peak, intensity × HBM bandwidth)`` with one H100
+        SXM's roofs — "memory"-bound left of the ridge point, "compute"-bound
+        right of it.
+        """
+        with self._lock:
+            compute = list(self.compute)
+        prof_kernels = dict(getattr(self.profile, "kernels", None) or {})
+        names = sorted({c.kernel for c in compute if c.kernel}
+                       | set(prof_kernels))
+        peak, hbm = H100_SXM_PEAK_FLOPS_BF16, H100_SXM_HBM_BW_Bps
+        rows: List[Dict[str, object]] = []
+        for name in names:
+            ts = [c.seconds for c in compute if c.kernel == name]
+            observed = sum(ts) / len(ts) if ts else None
+            kp = prof_kernels.get(name)
+            calibrated = kp.seconds if kp is not None else None
+            flops = kp.flops if kp is not None else 0.0
+            nbytes = kp.bytes_accessed if kp is not None else 0.0
+            intensity = flops / nbytes if nbytes else 0.0
+            roof = min(peak, intensity * hbm) if intensity else None
+            achieved = flops / observed if (observed and flops) else None
+            rows.append({
+                "kernel": name, "observations": len(ts),
+                "observed_s": observed, "calibrated_s": calibrated,
+                "model_ratio": (observed / calibrated
+                                if observed and calibrated else None),
+                "flops": flops, "bytes_accessed": nbytes,
+                "intensity": intensity,
+                "achieved_flops_per_s": achieved,
+                "roof_flops_per_s": roof,
+                "roofline_fraction": (achieved / roof
+                                      if achieved and roof else None),
+                "bound": (("compute" if intensity >= peak / hbm else "memory")
+                          if intensity else None),
+            })
+        return rows
+
+    def load_profile(self, profile, *, n_devices: Optional[int] = None,
+                     table_fingerprint: Optional[str] = None) -> None:
+        """Seed the model from a measured per-host CalibrationProfile.
+
+        After ``profile.check`` (pool shape, topology racks, kernel-table
+        fingerprint, schema version; :class:`~.calibrate.StaleProfileError`
+        otherwise): :meth:`kernel_time` falls back to the profile's kernel
+        seconds until live observations land; ``link`` (the host funnel)
+        and ``peer_link`` become the measured alpha-beta fits, so
+        ``comm_time``, the edges HEFT prices and ``route_edge``'s
+        ``"peer+int8"`` arithmetic use them; an installed topology's intra
+        and inter tier links become the per-tier fits.
+        """
+        profile.check(n_devices=n_devices, topology=self.topology,
+                      table_fingerprint=table_fingerprint)
+        self.profile = profile
+        funnel = profile.link_model("funnel")
+        if funnel is not None:
+            self.link = funnel
+        peer = profile.link_model("peer") or profile.link_model("peer:intra")
+        if peer is not None:
+            self.peer_link = peer
+        if self.topology is not None:
+            intra = profile.link_model("peer:intra")
+            inter = profile.link_model("peer:inter")
+            if intra is not None:
+                self.topology.intra = intra
+            if inter is not None:
+                self.topology.inter = inter
 
     def record_peer(self, src: int, dst: int, nbytes: int,
                     n_messages: int = 1, tag: str = "") -> None:

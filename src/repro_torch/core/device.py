@@ -405,7 +405,9 @@ class DevicePool:
                  capacity_bytes: Optional[int] = None,
                  deadline_s: Optional[float] = None) -> None:
         self.devices = list(devices)
-        self.table = table or GLOBAL_KERNEL_TABLE
+        # an explicit table, even an empty one (which is falsy), is the
+        # pool's own; only None means the process-global table
+        self.table = GLOBAL_KERNEL_TABLE if table is None else table
         self.cost = CostModel(link)
         self.deadline_s = deadline_s
         self._default_capacity = capacity_bytes   # for devices added later

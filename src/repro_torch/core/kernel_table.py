@@ -7,7 +7,8 @@ the host offloads by sending the integer index.
 
 PyTorch port: registration, lookup and :meth:`KernelTable.fingerprint` are
 those of ``repro.core.kernel_table`` (the fingerprint hashes only
-``index:name``, so both packages agree on the same registrations).  The
+``index:name``, so both packages agree on the same registrations; an entry's
+``example=`` operands, which the calibration pass times, stay out of it).  The
 reference's ``lax.switch`` dispatch over a signature class becomes host-side
 index dispatch: PyTorch runs eagerly, so the wire index selects the function
 directly.
@@ -27,6 +28,10 @@ class KernelEntry:
     name: str
     fn: Callable
     signature: Optional[str] = None  # signature class for switch_dispatch
+    # zero-arg callable returning example operands (positional tuple or
+    # kwargs dict): the calibration pass times the kernel on them.  Not in
+    # fingerprint(): measurement metadata, not dispatch identity.
+    example: Optional[Callable] = None
 
 
 class KernelTable:
@@ -43,21 +48,24 @@ class KernelTable:
 
     # -- registration -----------------------------------------------------
     def register(self, name: str, fn: Callable, *,
-                 signature: Optional[str] = None) -> int:
+                 signature: Optional[str] = None,
+                 example: Optional[Callable] = None) -> int:
         if name in self._by_name:
             raise ValueError(f"kernel {name!r} already registered")
         entry = KernelEntry(index=len(self._entries), name=name, fn=fn,
-                            signature=signature)
+                            signature=signature, example=example)
         self._entries.append(entry)
         self._by_name[name] = entry
         return entry.index
 
     def kernel(self, name: Optional[str] = None, *,
-               signature: Optional[str] = None):
+               signature: Optional[str] = None,
+               example: Optional[Callable] = None):
         """Decorator: ``@table.kernel()`` — the 'outlining' step of paper §4."""
 
         def deco(fn: Callable) -> Callable:
-            self.register(name or fn.__name__, fn, signature=signature)
+            self.register(name or fn.__name__, fn, signature=signature,
+                          example=example)
             return fn
 
         return deco

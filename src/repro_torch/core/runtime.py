@@ -25,11 +25,14 @@ the next binding refetches it (capacity changes traffic, never results).
 and ``transport_op_timeout_s`` turn a stalled command or message into a
 recoverable :class:`~.device.StragglerTimeout`.
 
-Left for a later slice: calibration (ROADMAP item 12, raises
-``NotImplementedError``).
+:meth:`ClusterRuntime.calibrate` measures the pool's kernels and links into
+a :class:`~.calibrate.CalibrationProfile` and installs it on the cost model;
+:meth:`ClusterRuntime.load_calibration` installs a saved one after its
+staleness check.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -179,8 +182,38 @@ class ClusterRuntime:
         self.pool.stop_all()
         self.ex.close()
 
-    def calibrate(self, *a, **kw):
-        raise NotImplementedError("calibrate: ROADMAP item 12")
+    def calibrate(self, operands: Optional[Dict[str, Any]] = None, *,
+                  reps: int = 5, warmup: int = 2,
+                  sizes: Sequence[int] = (1 << 14, 1 << 20, 1 << 23),
+                  save_dir: Optional[str] = None, load: bool = True):
+        """Run the measured-cost calibration pass over this runtime's pool.
+
+        Times every registered kernel that has example operands
+        (``operands[name]`` or a table ``example=``) and fits the funnel and
+        peer links per direction and tier of ``cfg.topology``, builds a
+        per-host :class:`~.calibrate.CalibrationProfile`, saves it under
+        ``save_dir`` when given, and — unless ``load=False`` — installs it
+        on the cost model.  Returns the profile.
+        """
+        from .calibrate import calibrate as _calibrate
+        profile = _calibrate(self.pool, operands, reps=reps, warmup=warmup,
+                             sizes=sizes, topology=self.cfg.topology,
+                             save_dir=save_dir)
+        if load:
+            self.load_calibration(profile)
+        return profile
+
+    def load_calibration(self, profile):
+        """Install a CalibrationProfile (object or JSON path) on the cost
+        model, after validating it against this pool's shape, topology and
+        kernel-table fingerprint (raises
+        :class:`~.calibrate.StaleProfileError` on a mismatch)."""
+        from .calibrate import CalibrationProfile
+        if isinstance(profile, (str, bytes, os.PathLike)):
+            profile = CalibrationProfile.load(os.fspath(profile))
+        self.cost.load_profile(profile, n_devices=len(self.pool),
+                               table_fingerprint=self.pool.table.fingerprint())
+        return profile
 
     # -- data-parallel gradient fabric ------------------------------------------
     def _ensure_dp_params(self, d: int, params: Any, tag: str) -> None:

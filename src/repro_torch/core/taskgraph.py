@@ -270,8 +270,9 @@ class HeftPlacement(PlacementPolicy):
     ``d`` is ``max(ready[d], latest edge arrival) + est``.  ``est`` comes
     from ``estimates``: ``"observed"`` (default) is
     :meth:`CostModel.kernel_time` — the mean of the EXEC seconds recorded so
-    far, else ``default_task_s``; ``"calibrated"`` is the calibration
-    profile's seed (none in the port yet: ``default_task_s``); ``"frozen"``
+    far, else ``default_task_s``; ``"calibrated"`` is the seed of the
+    profile installed by ``ClusterRuntime.calibrate`` / ``load_calibration``
+    (``default_task_s`` for a kernel without one); ``"frozen"``
     is ``default_task_s`` always (``use_observed=False``).  Each
     cross-device edge costs the cheaper of the host funnel and the peer
     fabric — the comparison :meth:`route_edge` answers, so the runner moves

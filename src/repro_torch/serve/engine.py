@@ -1,7 +1,8 @@
-"""Serving: continuous batching over one stacked KV cache, and the wave
-baseline (the port of ``repro/serve/engine.py``, local modes).
+"""Serving: continuous batching over one stacked KV cache, the wave
+baseline, and pool mode over the offload runtime (the port of
+``repro/serve/engine.py``).
 
-Two execution modes, one token stream (greedy decodes are identical across
+Three execution modes, one token stream (greedy decodes are identical across
 them):
 
 * **Continuous (default).**  Requests stream through an admission queue into
@@ -19,16 +20,29 @@ them):
   of attention families carry the per-sequence pad mask so pad slots are
   invisible; the ssm and hybrid families prefill the pads unmasked, as the
   reference does.
+* **Pool.**  With a :class:`~repro_torch.core.ClusterRuntime`, the
+  continuous loop lowers onto the TaskGraph: each admission and each
+  per-sequence decode step is a ``TaskNode`` (registered kernels
+  ``serve_prefill`` / ``serve_decode``) whose one-sequence cache lives in a
+  device data environment — ``device_out`` keeps it resident, ``present``
+  binds it without host traffic, and a capacity-bounded present table spills
+  cold sequences to the host and refetches them at their next step.  The
+  weights are resident and pinned on every device that serves.  Admissions
+  are placed by a policy (default ``"slo"``); with ``migrate_every`` a hot
+  sequence's cache moves off the deepest device queue over the runtime's
+  transport (``propagate_resident``).  Deadline shedding and hedging
+  (``stragglers=``) ride through ``run_graph``.
 
 The slot cache is made in the shape of the first B-row prefill's cache, and
 rows move along each leaf's batch axis as the model states it
 (``Model.cache_batch_axes``): axis 1 for the [L, B, S, K, Dh] self-KV, the
 enc-dec cross-KV and the mamba2 states, axis 2 for the hybrid's [G, k, B,
 ...] conv and SSM states.
-The reference's pool mode (the loop lowered onto the TaskGraph over device-
-resident caches) is not ported yet (ROADMAP item 14b): it builds on the
-peer fabric's ``alloc_resident`` / ``propagate_resident`` and on
-``SloPlacement``.
+Pool mode's entry bodies run eagerly on a virtual device's worker thread,
+under its stream, at one sequence each: an unpadded prefill (with
+``use_kernels`` on the card, the flash-attention kernel on every layer) and
+decodes at B = 1 (flash decode); greedy tokens are ``torch.argmax``'s first
+maximum, as in the local modes.
 
 On the card every decode step runs as a captured CUDA graph, the port's
 counterpart of the reference's ``jax.jit(model.decode_step)``: one graph per
@@ -100,6 +114,10 @@ class ServeConfig:
     # continuous mode: bucket prefill lengths to the next power of two with
     # a pad mask (bit-exact)
     bucket_prefill: bool = True
+    # pool mode: every N steps, if the deepest device queue exceeds the
+    # shallowest by >= 2 sequences, migrate the hottest sequence's cache
+    # off the tail device (0 = never migrate)
+    migrate_every: int = 0
 
 
 def _tree_map(fn, tree):
@@ -126,6 +144,13 @@ def _param_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+# the kernel libraries a family's serve path launches under use_kernels
+_SERVE_KERNELS = {"dense": ("flash_attention", "flash_decode"),
+                  "moe": ("flash_attention", "flash_decode", "grouped_matmul"),
+                  "ssm": ("ssd_scan",),
+                  "hybrid": ("ssd_scan", "flash_attention", "flash_decode")}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -144,25 +169,41 @@ def _decode_logits(model: Model, params: Any, token: torch.Tensor, cache: Any,
 class ServeEngine:
     def __init__(self, model: Model, params: Any, cfg: ServeConfig, *,
                  frontend_seq: int = 0, runtime: Any = None,
+                 policy: Any = None, stragglers: Any = None,
                  device: DeviceLike = "cuda", eager: bool = False) -> None:
         """``params`` must sit on ``device`` (the card unless the caller asks
         for the CPU; raises without one).  ``frontend_seq`` > 0 supplies
         zero-stub frontend embeddings (vlm patch embeds / enc-dec encoder
         frames).  On the card the decode steps replay captured CUDA graphs
-        unless ``eager`` asks for the eager route."""
+        unless ``eager`` asks for the eager route.
+
+        ``runtime`` switches on pool mode; ``policy`` picks its admission
+        placement (name or instance, default ``"slo"``); ``stragglers`` is
+        forwarded to every ``run_graph``.  In pool mode ``device`` must be
+        the runtime's, and ``params`` may sit on the host (the CPU: the
+        host's copy, as the reference's host arrays are) or on that device;
+        either way each serving device gets its own resident copy
+        (``ensure_resident``, counted in ``bytes_to``)."""
         if cfg.mode not in ("continuous", "wave"):
             raise ValueError(f"unknown serve mode {cfg.mode!r}")
-        if runtime is not None:
-            raise NotImplementedError(
-                "pool-mode serving is not ported yet (ROADMAP.md item 14b)")
         self.device = resolve_device(device)
         where = {str(leaf.device) for leaf in _param_leaves(params)}
-        if where != {str(self.device)}:
+        if runtime is not None:
+            if self.device != runtime.device:
+                raise ValueError(f"device {self.device} is not the runtime's "
+                                 f"{runtime.device}")
+            if len(where) != 1 or not where <= {"cpu", str(self.device)}:
+                raise ValueError(f"params live on {sorted(where)}, not on the "
+                                 f"host or {self.device}")
+        elif where != {str(self.device)}:
             raise ValueError(f"params live on {sorted(where)}, not {self.device}")
         self.model = model
         self.params = params
         self.cfg = cfg
         self.frontend_seq = frontend_seq
+        self.runtime = runtime
+        self.stragglers = stragglers
+        self.migrations = 0
         mcfg = model.cfg
         self._front_key = "enc_embeds" if mcfg.is_encdec else "embeds"
         self._prefix = frontend_seq if not mcfg.is_encdec else 0
@@ -181,6 +222,11 @@ class ServeEngine:
         self._shed = 0
         # continuous-mode slot state, built at the first admission
         self._slots_ready = False
+        if runtime is not None:
+            if cfg.mode == "wave":
+                raise ValueError("pool mode serves continuously; "
+                                 "use mode='wave' without a runtime")
+            self._pool_setup(policy)
 
     # -- shared helpers -------------------------------------------------------
     def _stub(self, B: int) -> torch.Tensor:
@@ -241,15 +287,19 @@ class ServeEngine:
     def has_work(self) -> bool:
         if self._pending:
             return True
+        if self.runtime is not None:
+            return bool(self._p_active)
         return self._slots_ready and bool(self._c_active.any())
 
     def step(self) -> List[Result]:
         """One engine step: admit into free slots (shedding expired
         deadlines), append each live sequence's pending token (retiring
-        finished ones), then run one batched decode.  Returns the Results
-        completed this step."""
+        finished ones), then run one batched decode / one decode TaskGraph.
+        Returns the Results completed this step."""
         if self._t0 is None:
             self._t0 = time.perf_counter()
+        if self.runtime is not None:
+            return self._step_pool()
         return self._step_local()
 
     def drain(self) -> Dict[int, Result]:
@@ -281,6 +331,8 @@ class ServeEngine:
         new_tokens = sum(len(r.tokens) for r in out.values())
         if wall > 0:
             extra = f", {self._shed} shed" if self._shed else ""
+            if self.migrations:
+                extra += f", {self.migrations} migrations"
             print(f"[serve] {len(requests)} requests, {self._steps} steps"
                   f"{extra}, {new_tokens} new tokens, "
                   f"{new_tokens / wall:.1f} tok/s", flush=True)
@@ -436,6 +488,241 @@ class ServeEngine:
             for b in np.flatnonzero(act):
                 self._c_res[b].decode_s += dt
         if act.any() or completed:
+            self._steps += 1
+        return completed
+
+    # ========================================================================
+    # pool mode: the continuous loop lowered onto the TaskGraph
+    # ========================================================================
+    def _pool_setup(self, policy: Any) -> None:
+        from ..core.taskgraph import PlacementContext, resolve_policy
+        from ..core.transport import PeerTransport
+        if self.cfg.temperature > 0:
+            raise ValueError("pool-mode serving is greedy-only")
+        rt = self.runtime
+        self.ex, self.pool = rt.ex, rt.pool
+        self._policy = resolve_policy("slo" if policy is None else policy)
+        self._D = len(rt.pool)
+        self._ctx = PlacementContext(
+            pool=rt.pool, cost=rt.pool.cost, D=self._D,
+            peer=isinstance(rt.transport, PeerTransport),
+            transport=rt.transport)
+        self._policy.begin(self._ctx)
+        self._adm_idx = 0
+        self._params_on: set = set()
+        # rid -> {req, res, device, entry, pos, tok}
+        self._p_active: Dict[int, Dict[str, Any]] = {}
+        self._ctpl = self._cache_struct()
+        self._register_kernels()
+
+    def _cache_struct(self) -> Any:
+        """The :class:`TensorSpec` tree of one sequence's decode cache (the
+        reference's ``_cache_struct(1)``): a 4-token prefill on meta tensors
+        through the plain route (shapes do not depend on the prompt)."""
+        from ..core.mediary import TensorSpec
+        meta = torch.device("meta")
+        cfg = self.model.cfg
+        params = _tree_map(lambda t: t.to(meta), self.params)
+        batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32, device=meta)}
+        if self.frontend_seq:
+            batch[self._front_key] = torch.zeros(
+                1, self.frontend_seq, cfg.d_model,
+                dtype=dtype_of(cfg.compute_dtype), device=meta)
+        _, cache, _ = Model(cfg.replace(use_kernels=False)).prefill(
+            params, batch, cache_len=self.cfg.max_len)
+        return _tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), cache)
+
+    def _register_kernels(self) -> None:
+        """Register ``serve_prefill`` / ``serve_decode`` under the
+        reference's names.  The entries live as long as the table (by
+        default the process-global one), so they hold a parameter-free
+        ``Model`` of this config, never the caller's (whose ``params`` may
+        be a model's weights), and an entry registered for another config
+        under the same name is refused, not reused."""
+        mcfg = self.model.cfg
+        key = f"{mcfg.name}:{self.cfg.max_len}:{self.frontend_seq}"
+        self._kp, self._kd = f"serve_prefill:{key}", f"serve_decode:{key}"
+        model, max_len = Model(mcfg), self.cfg.max_len
+        front_key = self._front_key
+        table = self.pool.table
+        for name in (self._kp, self._kd):
+            if name in table:
+                theirs = getattr(table.lookup(table.index_of(name)).fn, "cfg", None)
+                if theirs != mcfg:
+                    raise ValueError(f"kernel {name!r} is registered for another "
+                                     "model config; give the runtime its own "
+                                     "KernelTable")
+        if self._kp not in table:
+            def serve_prefill(params, toks, embeds=None):
+                batch = {"tokens": toks}
+                if embeds is not None:
+                    batch[front_key] = embeds
+                logits, cache, _ = model.prefill(params, batch,
+                                                 cache_len=max_len)
+                tok = torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
+                return {"out": tok.to(torch.int32)[:, None], "cache": cache}
+            serve_prefill.cfg = mcfg
+            table.register(self._kp, serve_prefill)
+        if self._kd not in table:
+            def serve_decode(params, cache, tok, pos):
+                # tok and pos are firstprivate host tensors: copied onto
+                # the device on this device's stream
+                dev = _leaves(cache)[0].device
+                logits, new_cache = model.decode_step(params, tok.to(dev), cache,
+                                                      pos.to(dev))
+                nxt = torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
+                return {"out": nxt.to(torch.int32)[:, None], "cache": new_cache}
+            serve_decode.cfg = mcfg
+            table.register(self._kd, serve_decode)
+        if self.device.type == "cuda" and mcfg.use_kernels:
+            # load the serving kernels here, not first on two device
+            # workers at once
+            from ..kernels import _build
+            for name in _SERVE_KERNELS.get(mcfg.family, _SERVE_KERNELS["dense"]):
+                _build.library(name)
+
+    def _ensure_params(self, d: int) -> None:
+        if d in self._params_on:
+            return
+        self.ex.ensure_resident(d, "serve:params", _serve_params=self.params)
+        # the weights are every step's hot set: exempt them from capacity
+        # eviction so pressure lands on cold sequence caches instead
+        self.ex.pin_resident(d, "_serve_params")
+        self._params_on.add(d)
+
+    def _place_admission(self, r: Request) -> int:
+        from ..core.taskgraph import TaskNode
+        self._ctx.healthy = self.pool.health.healthy(self._D)
+        node = TaskNode(name=f"adm{r.rid}", kernel=self._kd)
+        d = self._policy.place(self._ctx, node, self._adm_idx,
+                               f"serve:adm{r.rid}")
+        self._adm_idx += 1
+        return d
+
+    def _pool_admit(self, reqs: List[Request]) -> None:
+        from ..core.mediary import TensorSpec
+        from ..core.target import MapSpec
+        from ..core.taskgraph import TaskGraph, TaskNode, run_graph
+        t0 = time.perf_counter()
+        g = TaskGraph()
+        metas = []
+        for r in reqs:
+            d = self._place_admission(r)
+            self._ensure_params(d)
+            entry = f"_serve_c{r.rid}"
+            self.ex.alloc_resident(d, entry, self._ctpl, tag=f"serve:c{r.rid}")
+            to: Dict[str, Any] = {"toks": torch.tensor([list(r.prompt)],
+                                                       dtype=torch.int32)}
+            if self.frontend_seq:
+                to["embeds"] = torch.zeros(
+                    1, self.frontend_seq, self.model.cfg.d_model,
+                    dtype=dtype_of(self.model.cfg.compute_dtype))
+
+            def mm(deps, to=to, entry=entry):
+                return MapSpec(
+                    to=to, present={"params": "_serve_params"},
+                    device_out={"cache": entry},
+                    from_={"out": TensorSpec((1, 1), torch.int32)})
+
+            g.add(TaskNode(name=f"p{r.rid}", kernel=self._kp, make_maps=mm,
+                           device=d, tag=f"serve:p{r.rid}"))
+            metas.append((r, d, entry))
+        res = run_graph(self.ex, g, policy=self._policy, tag="serve",
+                        stragglers=self.stragglers)
+        dt = (time.perf_counter() - t0) / len(reqs)
+        for r, d, entry in metas:
+            self._p_active[r.rid] = {
+                "req": r, "res": Result(r.rid, prefill_s=dt), "device": d,
+                "entry": entry, "pos": self._prefix + len(r.prompt),
+                "tok": int(res[f"p{r.rid}"][0, 0])}
+
+    def _pool_decode(self) -> None:
+        from ..core.mediary import TensorSpec
+        from ..core.target import MapSpec
+        from ..core.taskgraph import TaskGraph, TaskNode, run_graph
+        t0 = time.perf_counter()
+        g = TaskGraph()
+        for rid, st in self._p_active.items():
+            tok = torch.full((1, 1), st["tok"], dtype=torch.int32)
+            pos = torch.tensor(st["pos"], dtype=torch.int32)
+
+            def mm(deps, tok=tok, pos=pos, entry=st["entry"]):
+                return MapSpec(
+                    firstprivate={"tok": tok, "pos": pos},
+                    present={"params": "_serve_params", "cache": entry},
+                    device_out={"cache": entry},
+                    from_={"out": TensorSpec((1, 1), torch.int32)})
+
+            g.add(TaskNode(name=f"d{rid}", kernel=self._kd, make_maps=mm,
+                           device=st["device"], tag=f"serve:d{rid}"))
+        res = run_graph(self.ex, g, policy=self._policy, tag="serve",
+                        stragglers=self.stragglers)
+        dt = (time.perf_counter() - t0) / len(self._p_active)
+        for rid, st in self._p_active.items():
+            st["tok"] = int(res[f"d{rid}"][0, 0])
+            st["pos"] += 1
+            st["res"].decode_s += dt
+
+    def _maybe_migrate(self) -> None:
+        """Move the hottest sequence off the deepest device queue: the
+        queue depth is the per-step latency of every sequence homed there,
+        so the deepest queue is the fleet's p99.  The policy's per-node
+        charges follow the sequence to its new device on the next decode
+        graph, so no backlog is moved here."""
+        self._ctx.healthy = self.pool.health.healthy(self._D)
+        cands = self._ctx.candidates()
+        counts = {d: 0 for d in cands}
+        for st in self._p_active.values():
+            counts[st["device"]] = counts.get(st["device"], 0) + 1
+        src = max(counts, key=lambda d: (counts[d], -d))
+        dst = min(counts, key=lambda d: (counts[d], d))
+        if src == dst or counts[src] - counts[dst] < 2:
+            return
+        on_src = [(rid, st) for rid, st in self._p_active.items()
+                  if st["device"] == src]
+        # hottest = longest expected remaining stay
+        rid, st = max(on_src, key=lambda kv: (
+            kv[1]["req"].max_new_tokens - len(kv[1]["res"].tokens), -kv[0]))
+        self._ensure_params(dst)
+        self.ex.propagate_resident(src, dst, st["entry"],
+                                   transport=self.runtime.transport,
+                                   tag=f"serve:mig{rid}")
+        self.ex.exit_data(src, st["entry"])
+        st["device"] = dst
+        self.migrations += 1
+
+    def _step_pool(self) -> List[Result]:
+        completed: List[Result] = []
+        self._shed_out = completed
+        elapsed_ms = (time.perf_counter() - self._t0) * 1e3
+        # 1. admission (placement + prefill graph)
+        admits: List[Request] = []
+        while len(self._p_active) + len(admits) < self.cfg.batch \
+                and self._pending:
+            r = self._shed_or_none(elapsed_ms)
+            if r is None:
+                break
+            admits.append(r)
+        if admits:
+            self._pool_admit(admits)
+        # 2. consume pending tokens; retire finished sequences
+        for rid in list(self._p_active):
+            st = self._p_active[rid]
+            res, r = st["res"], st["req"]
+            res.tokens.append(st["tok"])
+            if st["tok"] == self.cfg.eos \
+                    or len(res.tokens) >= r.max_new_tokens:
+                self.ex.exit_data(st["device"], st["entry"])
+                completed.append(res)
+                del self._p_active[rid]
+        # 3. tail relief: migrate a hot cache off the deepest queue
+        if self.cfg.migrate_every and len(self._p_active) > 1 \
+                and self._steps % self.cfg.migrate_every == 0:
+            self._maybe_migrate()
+        # 4. one decode TaskGraph over every live sequence
+        if self._p_active:
+            self._pool_decode()
+        if self._p_active or completed or admits:
             self._steps += 1
         return completed
 

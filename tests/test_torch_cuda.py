@@ -1149,3 +1149,61 @@ def test_added_device_gets_its_own_stream_and_runs_k2(cuda_device):
     finally:
         ex.close()
         pool.stop_all()
+
+
+def test_calibrate_on_the_card_seeds_k2_and_fits_links(cuda_device):
+    """``calibrate`` on a D=2 pool on the card with a bmod (K2) entry: a
+    positive seed on the EXEC clock, FLOPs and bytes counted on the CPU
+    copy, warm-up and reps launching K2 on ``cp_async``, fitted funnel and
+    peer links, and no calibration record left in the cost model."""
+    table = KernelTable()
+    table.register("bmod", lambda a, l, u: {"out": bmod_op(a, l, u)})
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=2, comm_mode="direct"), table=table,
+                        device=cuda_device)
+    try:
+        g = torch.Generator().manual_seed(0)
+        ops = tuple(torch.randn(128, 128, generator=g) for _ in range(3))
+        before = k2.path_launches["cp_async"].count
+        prof = rt.calibrate({"bmod": ops}, reps=4, warmup=2, sizes=(1 << 14, 1 << 20))
+        assert k2.path_launches["cp_async"].count - before == 6
+        kp = prof.kernels["bmod"]
+        assert kp.seconds > 0 and kp.reps == 4
+        assert (kp.flops, kp.bytes_accessed) == (2.0 * 128 ** 3, 4.0 * 128 * 128 * 4)
+        assert {"funnel", "funnel:to", "funnel:from", "peer"} <= set(prof.links)
+        assert all(lp.bandwidth_Bps > 0 for lp in prof.links.values())
+        assert prof.host["gpu"] == torch.cuda.get_device_name(cuda_device)
+        assert rt.cost.kernel_time("bmod") == kp.seconds
+        for records in ("transfers", "peers", "compute", "events", "placements"):
+            assert getattr(rt.cost, records) == [], records
+    finally:
+        rt.shutdown()
+
+
+def test_pool_serving_on_the_card_gives_the_local_tokens(cuda_device):
+    """Pool-mode serving of a 2-layer fp32 model (head dim 64) on a D=2
+    pool on the card, with the kernels on: each prefill launches K4 per
+    layer and each decode K3 per layer, from the devices' worker threads,
+    and the greedy tokens equal the local ``batch=1`` wave engine's."""
+    cfg = get_smoke_config("minitron-4b").replace(
+        n_heads=6, n_kv=2, d_head=64, param_dtype="float32", compute_dtype="float32",
+        use_kernels=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(1, cfg.vocab, 16).tolist(), max_new_tokens=4 + 2 * i)
+            for i in range(4)]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = Model(cfg)
+    params = model.init(gen)
+    local = ServeEngine(model, params, ServeConfig(batch=1, max_len=32, mode="wave"),
+                        eager=True).serve(reqs)
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=2), table=KernelTable(), device=cuda_device)
+    try:
+        before = (k4.launches.count, k3.launches.count)
+        eng = ServeEngine(model, params, ServeConfig(batch=2, max_len=32), runtime=rt,
+                          policy="round-robin")
+        out = eng.serve(reqs)
+        rt.pool.sync()
+        launched = (k4.launches.count - before[0], k3.launches.count - before[1])
+    finally:
+        rt.shutdown()
+    assert {r: o.tokens for r, o in out.items()} == {r: o.tokens for r, o in local.items()}
+    assert launched == (2 * len(reqs), 2 * sum(r.max_new_tokens - 1 for r in reqs))

@@ -172,8 +172,13 @@ def test_runtime_options_left_for_later_items_raise():
     try:
         assert isinstance(rt.transport, T.PeerTransport)
         assert rt.cost.topology is rt.transport.topology is rt.cfg.topology
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            rt.calibrate()
+        # calibration (ROADMAP item 12) is ported: two racks of one device
+        # fit the spine only, and the topology's inter link takes the fit
+        prof = rt.calibrate(reps=2, warmup=1, sizes=(1 << 12, 1 << 16))
+        assert {"peer:inter", "peer:inter:fwd", "peer:inter:rev"} <= set(prof.links)
+        assert "peer:intra" not in prof.links and rt.cost.profile is prof
+        assert rt.cfg.topology.inter == prof.link_model("peer:inter")
+        assert rt.cost.transfers == rt.cost.peers == rt.cost.events == []
     finally:
         rt.shutdown()
 

@@ -320,18 +320,35 @@ def test_cost_model_kernel_time_and_report_match_reference():
     assert [r["observed_device_ok"] for r in report] == [True, False]
 
 
-def test_roofline_report_and_profiles_are_item_12():
+def test_roofline_report_and_calibrated_estimates_follow_the_profile():
     c = T.CostModel()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        c.placement_report(roofline=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        c.load_profile(object())
-    assert c.profile is None
+    # no profile: the roofline rows come from the observations alone
+    c.record_compute(0, 0.5, tag="g:w0:a", kernel="bmod")
+    rep = c.placement_report(roofline=True)
+    assert rep["placements"] == [] and [r["kernel"] for r in rep["roofline"]] == ["bmod"]
+    assert rep["roofline"][0]["calibrated_s"] is None
+    # a loaded profile seeds kernel_time and the funnel link
+    prof = T.CalibrationProfile(
+        n_devices=2, kernels={"bmod": T.KernelProfile("bmod", 4e-5, flops=2.0 * 128 ** 3,
+                                                      bytes_accessed=4.0 * 128 * 128 * 4)},
+        links={"funnel": T.LinkProfile("funnel", 1e10, 1e-5)})
+    c.load_profile(prof, n_devices=2)
+    assert c.profile is prof and c.link == prof.link_model("funnel")
+    assert c.kernel_time("lu0") == T.DEFAULT_KERNEL_TIME_S
+    row = c.roofline_summary()[0]
+    assert row["calibrated_s"] == 4e-5 and row["model_ratio"] == 0.5 / 4e-5
+    assert row["intensity"] == 2.0 * 128 ** 3 / (4.0 * 128 * 128 * 4)
+    with pytest.raises(T.StaleProfileError, match="devices"):
+        c.load_profile(prof, n_devices=4)
     # "calibrated" with no profile falls to default_task_s, as the reference
     pool, ctx = _ctx(T, D=2)
     try:
         pol = T.HeftPlacement(default_task_s=3e-3, estimates="calibrated")
         assert pol._estimate(ctx, "bmod") == 3e-3
         assert pool.cost.cold_predictions == 0
+        # and with one, to the profile's seed
+        pool.cost.load_profile(prof)
+        assert pol._estimate(ctx, "bmod") == 4e-5
+        assert pol._estimate(ctx, "lu0") == 3e-3
     finally:
         pool.stop_all()

@@ -148,8 +148,15 @@ def test_unported_options_raise_not_implemented(tmp_path):
         assert sorted(os.listdir(tmp_path)) == ["step_00000001"]
         assert T.wavefront_offload(rt.ex, [], policy="heft") == {}
         assert isinstance(T.resolve_policy("heft"), T.HeftPlacement)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            rt.calibrate()
+        # calibration (ROADMAP item 12) is ported: with no example operands
+        # every kernel is skipped, the funnel and peer links are fitted, and
+        # the calibration's own traffic is discarded
+        prof = rt.calibrate(reps=2, warmup=1, sizes=(1 << 12, 1 << 16))
+        assert prof.kernels == {} and prof.skipped_kernels == rt.pool.table.names()
+        assert {"funnel", "peer"} <= set(prof.links) and rt.cost.profile is prof
+        assert rt.cost.link == prof.link_model("funnel")
+        assert not any(r.tag.startswith("__calib") for r in
+                       rt.cost.transfers + rt.cost.peers + rt.cost.events)
         with pytest.raises(ValueError):
             T.resolve_policy("no-such-policy")
     finally:

@@ -140,8 +140,18 @@ def test_streaming_api_and_sampling():
 
 def test_engine_refuses_what_it_does_not_serve():
     _, _, tm, tp = _pair("minitron-4b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tm, tp, ServeConfig(), runtime=object(), device="cpu")
+    # pool mode (ROADMAP item 14b) is ported; it serves continuously, as
+    # the reference's does
+    from repro_torch.core import ClusterRuntime, RuntimeConfig
+    rt = ClusterRuntime(RuntimeConfig(n_virtual=2), device="cpu")
+    try:
+        with pytest.raises(ValueError, match="continuously"):
+            ServeEngine(tm, tp, ServeConfig(mode="wave"), runtime=rt, device="cpu")
+        with pytest.raises(ValueError, match="continuously"):
+            JServeEngine(*_pair("minitron-4b")[:2], JServeConfig(mode="wave"),
+                         runtime=object())
+    finally:
+        rt.shutdown()
     with pytest.raises(ValueError, match="capacity"):
         ServeEngine(tm, tp, ServeConfig(max_len=8), device="cpu").submit(
             Request(0, [1] * 6, max_new_tokens=4))
