@@ -111,13 +111,14 @@ def serial(rt: ClusterRuntime, queries, refs, subst) -> torch.Tensor:
 
 
 def run(size: str = "small", device_counts=(1, 2, 4, 8), *,
-        device: DeviceLike = "cuda"):
+        repeats: int = 3, warmup: bool = True, device: DeviceLike = "cuda"):
     from .common import run_curve
     data = _data(*SIZES[size])
     return run_curve("alignment", size, _make_table(),
                      lambda rt, _d: offloaded(rt, *data),
                      serial=lambda rt: serial(rt, *data),
-                     device_counts=device_counts, device=device)
+                     device_counts=device_counts, repeats=repeats,
+                     warmup=warmup, device=device)
 
 
 def verify(size: str = "small", n_devices: int = 4, *,

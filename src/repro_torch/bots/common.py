@@ -10,6 +10,8 @@ makespan is a model of the paper's cluster, not a time measured on one.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, List
 
@@ -103,3 +105,12 @@ def run_curve(name: str, size: str, table: KernelTable,
             speedup_overlap=(curve.serial_s / s["makespan_overlap_s"]
                              if s["makespan_overlap_s"] else 0.0)))
     return curve
+
+
+def save_results(path: str, curves: List[Curve]) -> None:
+    """Write ``curves`` as ``benchmarks/common.py::save_results`` does: a
+    JSON list of :meth:`Curve.to_dict` (the reference's keys, plus
+    ``device``)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump([c.to_dict() for c in curves], f, indent=1)

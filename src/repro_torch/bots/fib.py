@@ -61,12 +61,12 @@ def serial(rt: ClusterRuntime, n: int) -> torch.Tensor:
 
 
 def run(size: str = "small", device_counts=(1, 2, 4, 8), *,
-        device: DeviceLike = "cuda"):
+        repeats: int = 3, warmup: bool = True, device: DeviceLike = "cuda"):
     from .common import run_curve
     n = SIZES[size]
     return run_curve("fib", size, _make_table(), lambda rt, _d: offloaded(rt, n),
                      serial=lambda rt: serial(rt, n), device_counts=device_counts,
-                     device=device)
+                     repeats=repeats, warmup=warmup, device=device)
 
 
 def verify(size: str = "small", n_devices: int = 4, *,

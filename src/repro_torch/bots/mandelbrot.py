@@ -8,7 +8,7 @@ launches the hand-written CUDA kernel, on the CPU its plain version.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Tuple, Union
 
 import torch
 
@@ -58,16 +58,19 @@ def serial(rt: ClusterRuntime, rows: torch.Tensor, width: int) -> torch.Tensor:
         from_={"out": TensorSpec((rows.shape[0], width), torch.int32)}))["out"]
 
 
-def run(size: str = "small", device_counts=(1, 2, 4, 8), *,
-        device: DeviceLike = "cuda"):
+def run(size: Union[str, int] = "small", device_counts=(1, 2, 4, 8), *,
+        repeats: int = 3, warmup: bool = True, device: DeviceLike = "cuda"):
+    """The curve of a named size, or of an ``int`` image side (the paper's
+    4600)."""
     from .common import run_curve
-    H = W = SIZES[size]
+    H = W = SIZES[size] if isinstance(size, str) else int(size)
     table = _make_table(W, H, MAX_ITER)
     rows = all_rows(H)
-    return run_curve("mandelbrot", size, table,
+    return run_curve("mandelbrot", str(size), table,
                      lambda rt, n: strips(rt, rows, W),
                      serial=lambda rt: serial(rt, rows, W),
-                     device_counts=device_counts, device=device)
+                     device_counts=device_counts, repeats=repeats,
+                     warmup=warmup, device=device)
 
 
 def verify(size: str = "small", n_devices: int = 4, *,

@@ -159,14 +159,15 @@ def assemble(res: Dict[str, torch.Tensor], K: int) -> torch.Tensor:
 
 
 def run(size: Size = "small", device_counts=(1, 2, 4, 8), *,
-        device: DeviceLike = "cuda"):
+        repeats: int = 3, warmup: bool = True, device: DeviceLike = "cuda"):
     from .common import run_curve
     K, B = dims(size)
     mat = _matrix(K, B)
     return run_curve("sparselu", str(size), _make_table(K),
                      lambda rt, n: wavefront(rt, mat),
                      serial=lambda rt: serial(rt, mat),
-                     device_counts=device_counts, device=device)
+                     device_counts=device_counts, repeats=repeats,
+                     warmup=warmup, device=device)
 
 
 def verify(size: Size = "small", n_devices: int = 3, *,

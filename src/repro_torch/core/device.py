@@ -55,7 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._device import DeviceLike, resolve_device
+from .._device import DeviceLike, give_stream, resolve_device, take_stream
 from . import _tree
 from .costmodel import CostModel, LinkModel, PAPER_ETHERNET
 from .kernel_table import GLOBAL_KERNEL_TABLE, KernelTable
@@ -117,8 +117,7 @@ class NodeDevice:
         # resident-memory budget for this device's present table (None =
         # unbounded); enforced by the executor's LRU spill path, not here
         self.capacity_bytes = capacity_bytes
-        self.stream = (torch.cuda.Stream(device=device)
-                       if device.type == "cuda" else None)
+        self.stream = take_stream(device) if device.type == "cuda" else None
 
     def stream_context(self):
         """Context that makes this device's stream current (no-op on the CPU)."""
@@ -219,6 +218,9 @@ class NodeDevice:
             return out
         if cmd.op == "STOP":
             self.stopped = True
+            if self.stream is not None:     # every command before it is done
+                give_stream(self.device, self.stream)
+                self.stream = None
             return None
         raise ValueError(f"unknown command {cmd.op}")
 

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .._device import give_stream, take_stream
 from ..kernels import _build
 
 
@@ -56,18 +57,19 @@ class CapturedStep:
 
     def _warm_up_and_capture(self) -> Any:
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = take_stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out = self.fn()
         main.wait_stream(side)
         for t in (out if isinstance(out, tuple) else (out,)):
             t.record_stream(main)         # made on the side stream, used on main
+        give_stream(self.device, side)
         # capture on a stream of our own, so that a step which fails the
         # capture leaves the stream context as it was and its own error is
         # the one raised
         graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.Stream(self.device)
+        capture = take_stream(self.device)
         torch.cuda.synchronize(self.device)
         before = _build.launch_counts()
         with torch.cuda.stream(capture):
@@ -77,8 +79,9 @@ class CapturedStep:
             except BaseException:
                 with contextlib.suppress(RuntimeError):
                     graph.capture_end()
-                raise
+                raise                     # the stream is not handed back
             graph.capture_end()
+        give_stream(self.device, capture)
         self.launches = _build.counts_since(before)
         _build.add_counts(self.launches, -1)
         self.graph = graph

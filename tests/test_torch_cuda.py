@@ -20,6 +20,9 @@ import pytest
 import torch
 
 from repro_torch import comm_modes as cm
+from repro_torch import perf_gate as tpg
+from repro_torch import run as trun
+from repro_torch import serve_load as tsl
 from repro_torch.bots import alignment as tba
 from repro_torch.bots import fib as tbf
 from repro_torch.bots import mandelbrot as tbm
@@ -1207,3 +1210,77 @@ def test_pool_serving_on_the_card_gives_the_local_tokens(cuda_device):
         rt.shutdown()
     assert {r: o.tokens for r, o in out.items()} == {r: o.tokens for r, o in local.items()}
     assert launched == (2 * len(reqs), 2 * sum(r.max_new_tokens - 1 for r in reqs))
+
+
+def test_paper_claims_run_on_the_card(cuda_device):
+    """``run.run_all`` on the card over sparselu and mandelbrot small at
+    D = 1, 2: the CPU run's byte columns, an exact verification, every K1
+    launch ``chunked`` and every K2 launch ``cp_async``."""
+    before = (k1.path_launches["chunked"].count, k1.launches.count,
+              k2.path_launches["cp_async"].count, k2.launches.count)
+    curves, err = trun.run_all(repeats=1, plan=(("sparselu", "small", (1, 2)),
+                                                ("mandelbrot", "small", (1, 2))))
+    k1_chunked, k1_all, k2_async, k2_all = (
+        k1.path_launches["chunked"].count - before[0], k1.launches.count - before[1],
+        k2.path_launches["cp_async"].count - before[2], k2.launches.count - before[3])
+    assert err == 0.0
+    cols = {c.name: [(p.devices, p.bytes_to, p.bytes_from) for p in c.points]
+            for c in curves}
+    assert cols["sparselu"] == [(1, 999424.0, 491520.0), (2, 1015808.0, 491520.0)]
+    assert cols["mandelbrot"] == [(1, 1664.0, 692224.0), (2, 1664.0, 692224.0)]
+    assert all(p.speedup > 0 for c in curves for p in c.points)
+    assert k1_all > 0 and k1_chunked == k1_all
+    assert k2_all > 0 and k2_async == k2_all
+
+
+def test_serve_load_sections_on_the_card(cuda_device):
+    """Both open-loop sections on the card at a 2-layer fp32 model (head
+    dim 64) with the kernels on: the reference's request and token counts,
+    and identical tokens (continuous vs wave, SLO vs round-robin).  The
+    timing-dependent checks are reported, not held."""
+    cfg = get_smoke_config("minitron-4b").replace(
+        n_heads=6, n_kv=2, d_head=64, param_dtype="float32", compute_dtype="float32",
+        use_kernels=True)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    before = (k4.launches.count, k3.launches.count)
+    s1 = tsl.run_continuous_vs_wave(n=16, model=model, params=params)
+    s2 = tsl.run_slo_vs_roundrobin(n=30, reps=1, model=model, params=params)
+    assert (k4.launches.count - before[0]) > 0 and (k3.launches.count - before[1]) > 0
+    for sec, engines, counts in ((s1, ("wave", "continuous"), (16, 183)),
+                                 (s2, ("round-robin", "slo"), (30, 655))):
+        for e in engines:
+            assert (sec[e]["requests"], sec[e]["tokens"]) == counts
+        assert sec["checks"]["tokens_identical"]
+
+
+def test_calibration_gate_on_the_card(cuda_device):
+    """The calibration gate with the pool on the card: both arms bit for
+    bit, every K2 launch ``cp_async``, the win at least 20%."""
+    before = (k2.path_launches["cp_async"].count, k2.launches.count)
+    fails, detail = tpg.calibration_gate()
+    launched = (k2.path_launches["cp_async"].count - before[0], k2.launches.count - before[1])
+    assert fails == [] and detail["bit_identical"]
+    assert detail["win_pct"] >= 20.0
+    assert launched[1] > 0 and launched[0] == launched[1]
+
+
+def test_runtimes_reuse_the_streams_of_stopped_devices(cuda_device):
+    """A stopped device hands its stream back and the next runtime's devices
+    take it, so PyTorch's per-stream cuBLAS workspaces (32 MiB each, kept for
+    the process's life) are not made anew for every runtime."""
+    mat = tbl._matrix(4, 64)
+
+    def once():
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=4), table=tbl._make_table(4),
+                            device=cuda_device)
+        streams = [d.stream for d in rt.pool.devices]
+        try:
+            tbl.wavefront(rt, mat)
+        finally:
+            rt.shutdown()
+        assert all(d.stream is None for d in rt.pool.devices)
+        return {id(s) for s in streams}
+
+    first = once()
+    assert once() == first and once() == first
