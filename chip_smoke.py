@@ -102,7 +102,14 @@ runs, printing one JSON line per phase:
    §5 claims (``repro_torch.run``): every BOTS curve at the reference's
    sizes over D = 1, 2, 4, 8 with the reference's byte columns, and
    mandelbrot 4600² and sparselu K=16 over the same counts, each claim
-   reported held or failed;
+   reported held or failed; then training on the plain route (the kernels
+   have no backward; the ``train`` row, ``phase_train``): mamba2-130m at
+   its full config through ``repro_torch.launch.train`` (30 steps, batch
+   8 x 256, async checkpoints), a SIGTERM'd trainer child resumed in a
+   fresh interpreter against an uninterrupted one (losses and final state
+   bit for bit), microbatches 1 and 2 in fp32, the model as the runtime's
+   D=4 data-parallel trainer in both fabrics with the CPU's byte counters,
+   and K3-K6's wrappers refusing a gradient;
 6. LM serving: minitron-4b at full width (32 layers, d_model 3072, bf16,
    random weights from seed 0) with the kernels on: 8 requests of 512
    tokens in continuous mode, then 4 in wave mode (one unpadded prefill:
@@ -178,9 +185,12 @@ failed phase, and when no card is present.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import glob
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -383,20 +393,39 @@ STATE_WAVE_BUDGET = 32
 # (mamba2), so 2e-3 is ~13x the largest reading.  LOGITS_REL_TOL stays as a
 # backstop on the two bf16 routes' direct distance.
 STATE_FP32_MARGIN = 2e-3
+# the train phase: mamba2-130m at its full config through the trainer
+# (``repro_torch.launch.train``), the reference's ``--full-130m`` example run
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_ARGS = ("--arch", TRAIN_ARCH, "--preset", "full", "--global-batch", "8",
+              "--seq", "256", "--lr", "3e-4", "--warmup", "10", "--save-every", "10",
+              "--log-every", "1", "--device", "cuda")
+TRAIN_STEPS, RESUME_STEPS, PREEMPT_AFTER = 30, 20, 10
+TRAIN_TIMED = (5, 30)                   # ms/step: the median over these steps
+TRAIN_PROFILED_STEPS = 3                # the busy share: steps under torch.profiler
+MICRO_RTOL, MICRO_PARAM_ATOL = 1e-5, 5e-5   # tests/test_train.py:87-89
+TRAIN_DP_DEVICES, TRAIN_DP_SEQS, TRAIN_DP_STEPS, TRAIN_DP_LR = 4, 2, 6, 3e-3
+TRAIN_CHILD_TIMEOUT = 240
+#: the card's allocated bytes around each release_card_memory call
+CARD_MEMORY: list = []
 
 
 T_START = time.perf_counter()
 
 
-def release_card_memory(torch) -> None:
+def release_card_memory(torch, label: str = "") -> None:
     """Free what finished phases left on the card: collected garbage, the
-    cuBLAS workspace (32 MiB) PyTorch keeps for every (handle, stream) pair a
-    matmul or solve ran on — the runtime phases' worker threads pair the
-    virtual devices' streams with new handles run after run — and the
-    allocator's free segments.  Called between phases, when no other thread
-    works on the card."""
+    cuBLAS workspaces (32 MiB each) PyTorch keeps for every (handle, stream)
+    pair a matmul or solve ran on, and the allocator's free segments.
+    Called between phases, when no other thread works on the card.  The
+    allocated bytes just before and just after the workspaces are cleared
+    go into ``CARD_MEMORY``: the virtual devices' workers keep their (handle,
+    stream) pairs from runtime to runtime, so the bytes before a clear no
+    longer grow with the runtimes a phase made."""
     gc.collect()
+    before = torch.cuda.memory_allocated()
     torch._C._cuda_clearCublasWorkspaces()
+    CARD_MEMORY.append({"before": label, "allocated_before_clear": before,
+                        "cleared_bytes": before - torch.cuda.memory_allocated()})
     torch.cuda.empty_cache()
 
 
@@ -2856,6 +2885,480 @@ def phase_fib_alignment(torch, peaks):
     return kbusy, launches
 
 
+def _start_train_child(args):
+    """``python -m repro_torch.launch.train ARGS`` in a fresh interpreter."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _train_child(args, stop_after=None, child=None):
+    """Run (or, given ``child``, follow) a trainer child to its end; with
+    ``stop_after``, SIGTERM it once its log line for that step is out.
+    Returns (exit code, its output)."""
+    import signal
+    child = child or _start_train_child(args)
+    lines = []
+    try:
+        for line in child.stdout:
+            lines.append(line)
+            if (stop_after is not None and line.startswith("[train] step")
+                    and int(line.split()[2]) >= stop_after):
+                child.send_signal(signal.SIGTERM)
+                stop_after = None
+        rc = child.wait(timeout=TRAIN_CHILD_TIMEOUT)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return rc, "".join(lines)
+
+
+def _train_metrics(path) -> dict:
+    with open(path) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def _checkpoint_bytes(directory, step) -> dict:
+    """A committed checkpoint step's stored arrays, by key."""
+    import numpy as np
+    with np.load(os.path.join(directory, f"step_{step:08d}", "proc_0.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _dp_batches(torch, vocab: int) -> list:
+    """The DP phase's per-device shards: ``TRAIN_DP_STEPS`` global batches of
+    the trainer's stream, ``TRAIN_DP_SEQS`` sequences of 256 per device."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    D, n = TRAIN_DP_DEVICES, TRAIN_DP_SEQS
+    data = SyntheticLM(DataConfig(vocab=vocab, seq=256, global_batch=D * n))
+    return [[{k: torch.from_numpy(v[d * n:(d + 1) * n].copy())
+              for k, v in data.batch(i).items()} for d in range(D)]
+            for i in range(TRAIN_DP_STEPS)]
+
+
+def _dp_exchanges(torch, device, table, params, shards, update) -> dict:
+    """``TRAIN_DP_STEPS`` exchanges of ``data_parallel_grads("lm_grads")``
+    in both fabrics from the same host parameters; ``update(params, mean,
+    step)`` makes the next ones from the host-mediated mean.  Returns each
+    step's largest fabric gap, whether every leaf was allclose, the final
+    parameters and the byte counters.  (The fabrics' calls go one after
+    the other: issued together from two host threads, the host threads and
+    the eight workers contending for the interpreter lock took longer on
+    the H100, 85.5 s against 68.0 s.)"""
+    from repro_torch.core import ClusterRuntime, RuntimeConfig, _tree
+    rts = {mode: ClusterRuntime(RuntimeConfig(n_virtual=TRAIN_DP_DEVICES, comm_mode=mode),
+                                table=table, device=device)
+           for mode in ("host-mediated", "direct")}
+    gaps, ok = [], True
+    try:
+        for i, shard in enumerate(shards):
+            means = {mode: rt.data_parallel_grads("lm_grads", params, shard)
+                     for mode, rt in rts.items()}
+            h, d = (_tree.leaves(means[k]) for k in ("host-mediated", "direct"))
+            ok = ok and all(torch.allclose(y, x, rtol=1e-5, atol=1e-6) for x, y in zip(h, d))
+            gaps.append(max(float((y - x).abs().max()) for x, y in zip(h, d)))
+            params = update(params, means["host-mediated"], i)
+        counters = {mode: {k: rt.cost.summary()[k]
+                           for k in ("bytes_to", "bytes_from", "bytes_peer")}
+                    for mode, rt in rts.items()}
+    finally:
+        for rt in rts.values():
+            rt.shutdown()
+    return {"gaps": gaps, "allclose": ok, "params": params, "bytes": counters}
+
+
+def dp_cpu_bytes(path: str) -> None:
+    """The DP phase's byte counters from a CPU run at the same trees: the
+    fp32 full-width parameters (zeros), the same shards, a kernel that
+    returns zero gradients of the parameters' tree, and new host parameter
+    tensors every step, as an update makes (the counters depend only on the
+    maps).  Written to ``path`` as JSON; run in a child beside the card's
+    run (``python -c``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import KernelTable, _tree
+    from repro_torch.models import Model
+    cfg = get_config(TRAIN_ARCH).replace(param_dtype="float32", compute_dtype="float32")
+    flat, tdef = _tree.flatten(Model(cfg).init_abstract())
+    params = _tree.unflatten(tdef, [torch.zeros(t.shape, dtype=t.dtype) for t in flat])
+    zero = KernelTable()
+    zero.register("lm_grads", lambda params, batch: {"grads": _tree.unflatten(
+        tdef, [torch.zeros_like(x) for x in _tree.leaves(params)])})
+    out = _dp_exchanges(torch, "cpu", zero, params, _dp_batches(torch, cfg.vocab),
+                        lambda p, mean, i: _tree.unflatten(
+                            tdef, [x.clone() for x in _tree.leaves(p)]))
+    with open(path, "w") as f:
+        json.dump(out["bytes"], f)
+
+
+def _mean_loss(torch, model, params, batches, group: int = 5) -> float:
+    """The mean token loss over ``batches`` (of equal shapes), ``group``
+    batches a forward."""
+    with torch.no_grad():
+        parts = [{k: torch.cat([b[k] for b in batches[i:i + group]]) for k in batches[0]}
+                 for i in range(0, len(batches), group)]
+        return sum(float(model.loss(params, b)[0]) * len(b["tokens"])
+                   for b in parts) / sum(len(b["tokens"]) for b in parts)
+
+
+def _train_micro_and_dp(torch, dev, cfg, data, tmp):
+    """The train phase's parts (c) and (d) (``phase_train``): their rows
+    and seconds."""
+    from repro_torch.core import KernelTable, _tree
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import lm_grads_kernel, loss_and_grads, make_train_step
+
+    seconds_cd = {}
+    # (c) microbatches 1 and 2, fp32 at full width
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg32)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(0).items()}
+    acfg = AdamWConfig(lr=1e-3)
+    opt = AdamW(acfg)
+    t0 = time.perf_counter()
+    p1, _, m1 = make_train_step(model, opt)(params, opt.init(params), batch)
+    p2, _, m2 = make_train_step(model, opt, microbatches=2)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    micro_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g1, g2 = (_tree.leaves(loss_and_grads(model, params, batch, mb)[2]) for mb in (1, 2))
+    s1, s2 = (min(1.0, acfg.clip_norm / float(mt["grad_norm"])) for mt in (m1, m2))
+    grad_rel = max(float((x - y).norm() / x.norm()) for x, y in zip(g1, g2))
+    param_all, param_kept, over = 0.0, 0.0, 0
+    for x, y, a_, b_ in zip(_tree.leaves(p1), _tree.leaves(p2), g1, g2):
+        d = (x - y).abs()
+        kept = torch.minimum(a_.abs() * s1, b_.abs() * s2) >= 100 * acfg.eps
+        param_all = max(param_all, float(d.max()))
+        param_kept = max(param_kept, float(torch.where(kept, d, 0.0).max()))
+        over += int((d > MICRO_PARAM_ATOL).sum())
+    loss_rel = abs(float(m1["loss"]) - float(m2["loss"])) / abs(float(m1["loss"]))
+    c_row = {
+        "dtype": "float32", "batch": [8, 256], "lr": acfg.lr,
+        "loss": [float(m1["loss"]), float(m2["loss"])], "loss_rel_diff": loss_rel,
+        "grad_max_rel_norm_diff": grad_rel, "clip_scale": [s1, s2],
+        "param_max_abs_diff_conditioned": param_kept,
+        "param_max_abs_diff_all": param_all, "elements_over_bound": over,
+        "bounds": {"loss_rtol": MICRO_RTOL, "grad_rel": 1e-4,
+                   "param_atol": MICRO_PARAM_ATOL, "min_clipped_grad": 100 * acfg.eps},
+        "wall_s": micro_s}
+    seconds_cd["microbatches"] = micro_s + time.perf_counter() - t0
+    del p1, p2, m1, m2, g1, g2, batch
+    release_card_memory(torch, "train: data-parallel")
+
+    # (d) the runtime as the DP trainer; the CPU's byte counters in a
+    # child beside it
+    t_dp = time.perf_counter()
+    cpu_json = os.path.join(tmp, "dp_cpu_bytes.json")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([ROOT, os.path.join(ROOT, "src")])}
+    cpu_child = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_cpu_bytes({cpu_json!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        table = KernelTable()
+        table.register("lm_grads", lm_grads_kernel(model))
+        tdef = _tree.flatten(params)[1]
+        host = _tree.unflatten(tdef, [p.cpu() for p in _tree.leaves(params)])
+        del params
+        shards = _dp_batches(torch, cfg32.vocab)
+        fulls = [{k: torch.cat([s[k] for s in shard]).to(dev) for k in shard[0]}
+                 for shard in shards]
+        opt = AdamW(AdamWConfig(lr=TRAIN_DP_LR))
+        post = []
+
+        def on_card(p):
+            return _tree.unflatten(tdef, [x.to(dev) for x in _tree.leaves(p)])
+
+        # the host's AdamW step, computed on the card (2.3 s a step on the
+        # host's CPU at this size), its moments kept there; the parameters
+        # go back to the host, where the runtime reads them
+        state = {"opt": opt.init(on_card(host))}
+
+        def update(p, mean, i):
+            new, state["opt"], _ = opt.update(on_card(mean), state["opt"], on_card(p))
+            with torch.no_grad():
+                post.append(float(model.loss(new, fulls[i])[0]))
+            return _tree.unflatten(tdef, [x.cpu() for x in _tree.leaves(new)])
+
+        t0 = time.perf_counter()
+        dp = _dp_exchanges(torch, "cuda", table, host, shards, update)
+        dp_s = seconds_cd["dp_exchanges"] = time.perf_counter() - t0
+        dp_fit = {"initial": _mean_loss(torch, model, on_card(host), fulls),
+                  "final": _mean_loss(torch, model, on_card(dp["params"]), fulls)}
+        t0 = time.perf_counter()
+        out_cpu = cpu_child.communicate(timeout=TRAIN_CHILD_TIMEOUT)[0]
+        cpu_wait_s = time.perf_counter() - t0
+    finally:
+        if cpu_child.poll() is None:
+            cpu_child.kill()
+            cpu_child.wait()
+    cpu_bytes = None
+    if cpu_child.returncode == 0:
+        with open(cpu_json) as f:
+            cpu_bytes = json.load(f)
+    d_row = {
+        "dtype": "float32", "devices": TRAIN_DP_DEVICES, "seqs_per_device": TRAIN_DP_SEQS,
+        "steps": TRAIN_DP_STEPS, "lr": TRAIN_DP_LR, "post_update_losses": post,
+        "trained_batches_mean_loss": dp_fit, "fabric_max_abs_diff": dp["gaps"],
+        "fabrics_allclose": dp["allclose"], "bytes": dp["bytes"], "cpu_bytes": cpu_bytes,
+        "cpu_child": {"rc": cpu_child.returncode, "tail": out_cpu[-400:],
+                      "waited_s": cpu_wait_s},
+        "bytes_equal_cpu": dp["bytes"] == cpu_bytes, "wall_s": dp_s}
+    seconds_cd["data_parallel"] = time.perf_counter() - t_dp
+    return (c_row, d_row), seconds_cd
+
+
+def phase_train(torch, card: str) -> dict:
+    """Training on the card, on the plain route (the kernels have no
+    backward; no kernel may launch here):
+
+    (a) ``repro_torch.launch.train.main`` in this process: mamba2-130m at its
+        full config (bf16), global batch 8 x 256, lr 3e-4 with 10 warmup
+        steps, 30 steps, a checkpoint every 10 (async): ms/step (the median
+        over ``TRAIN_TIMED``), tok/s, the peak allocated bytes, the losses,
+        the mean loss over the 30 trained batches at the initial parameters
+        and at the final checkpoint's, and the card's busy share over
+        ``TRAIN_PROFILED_STEPS`` more steps of the same step function.
+        Gated: every loss finite, the final parameters' mean loss over the
+        trained batches below the initial parameters'.
+        Reported: the first and last five logged losses' means (each a new
+        batch: a walk over 50,280 tokens is not learnable in 30 steps of
+        2,048 tokens, each token seen about once);
+    (b) the same command for 20 steps in a fresh interpreter, sent SIGTERM
+        after its step-10 log line (it must checkpoint and exit 0), then
+        resumed with ``--resume`` in another to step 20 (beside (c) and
+        (d)), against an uninterrupted 20-step child run beside the first:
+        the resumed steps' losses and the final checkpoint (parameters and
+        optimizer state) bit for bit;
+    (c) one step at full width in fp32 with ``microbatches`` 1 and 2: loss
+        within ``MICRO_RTOL``, each leaf's accumulated gradient within 1e-4
+        of its norm, and the parameters within ``MICRO_PARAM_ATOL`` wherever
+        both runs' clipped gradient is at least 100 x AdamW's eps (Adam's
+        first step is g / (|g| + eps): below that, summation-order noise in
+        g moves the step by up to lr); the largest difference over every
+        element is reported;
+    (d) the runtime as the DP trainer: full width in fp32 on D=4 virtual
+        devices, 2 sequences x 256 each, 6 exchanges of
+        ``data_parallel_grads("lm_grads")`` in both fabrics from the same
+        host parameters, each followed by the host's AdamW step at lr 3e-3
+        (the reference's ``tests/test_system.py``; computed on the card): the fabrics' mean gradients
+        within rtol 1e-5; the final parameters' mean loss over the 6 trained
+        batches below the initial parameters'; the byte counters equal to a
+        CPU run's at the same trees (``dp_cpu_bytes``, in a child beside the
+        card's run).  Reported: the loss on each step's batch after its
+        update (the reference's last-below-first assert reads these);
+    (e) a ``use_kernels=True`` model with parameters that require grad raises
+        from K3's, K4's, K5's and K6's wrappers, before any launch."""
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention as k4
+    from repro_torch.kernels.flash_decode import flash_decode as k3
+    from repro_torch.kernels.grouped_matmul import grouped_matmul as k6
+    from repro_torch.kernels.ssd_scan import ssd_scan as k5
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    mods = (k3, k4, k5, k6)
+    _reset_counts(*mods)
+    dev = torch.device("cuda", 0)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_", dir=os.path.join(ROOT, "build"))
+    row = {"phase": "train", "card": card, "arch": TRAIN_ARCH}
+    seconds = row["seconds"] = {}
+
+    try:
+        # (a) the trainer, in this process
+        args = [*TRAIN_ARGS, "--steps", str(TRAIN_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()         # the trainer's log lines stay off stdout
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = launch_train.main([*args, "--ckpt-dir", os.path.join(tmp, "a"),
+                                    "--metrics", os.path.join(tmp, "a.jsonl")])
+        wall = seconds["trainer"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        m = _train_metrics(os.path.join(tmp, "a.jsonl"))
+        losses = [m[s]["loss"] for s in sorted(m)]
+        lo, hi = TRAIN_TIMED
+        ms = statistics.median(m[s]["s_per_step"] for s in range(lo, hi + 1)) * 1e3
+        cfg = get_config(TRAIN_ARCH)
+        model = Model(cfg)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=256, global_batch=8))
+        trained = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+                   for i in range(TRAIN_STEPS)]
+        final = restore_pytree(os.path.join(tmp, "a"), step=TRAIN_STEPS,
+                               template={"params": model.init_abstract()}, device=dev)[0]
+        initial = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        fit = {"initial": _mean_loss(torch, model, initial, trained),
+               "final": _mean_loss(torch, model, final["params"], trained)}
+        del initial
+        seconds["fit_eval"] = time.perf_counter() - t0 - wall
+        # the busy share: more steps of the trainer's step function from the
+        # final state, under torch.profiler (the trainer's run warmed it up)
+        opt = AdamW(AdamWConfig(lr=3e-4))
+        step = make_train_step(model, opt)
+        prof = {"p": final["params"]}
+        prof["s"] = opt.init(prof["p"])
+
+        def profiled_steps():
+            for b in trained[:TRAIN_PROFILED_STEPS]:
+                prof["p"], prof["s"], _ = step(prof["p"], prof["s"], b)
+
+        t1 = time.perf_counter()
+        busy = device_busy(torch, profiled_steps)
+        seconds["profile"] = time.perf_counter() - t1
+        del trained, final, prof
+        row["trainer"] = {
+            "rc": rc, "steps": TRAIN_STEPS, "wall_s": wall, "ms_per_step": ms,
+            "timed_steps": list(TRAIN_TIMED), "tok_per_s": 8 * 256 / (ms * 1e-3),
+            "peak_allocated_bytes": peak, "losses": losses,
+            "first5_mean": sum(losses[:5]) / 5, "last5_mean": sum(losses[-5:]) / 5,
+            "trained_batches_mean_loss": fit,
+            "checkpoints": sorted(os.listdir(os.path.join(tmp, "a"))),
+            "profiled_steps": TRAIN_PROFILED_STEPS, **busy}
+        release_card_memory(torch, "train: preempt and resume")
+
+        # (b) SIGTERM after step 10 in a fresh interpreter, resumed in another
+        args = [*TRAIN_ARGS, "--steps", str(RESUME_STEPS)]
+        t0 = time.perf_counter()
+        uninterrupted = [*args, "--ckpt-dir", os.path.join(tmp, "u"),
+                         "--metrics", os.path.join(tmp, "u.jsonl")]
+        preempted = [*args, "--ckpt-dir", os.path.join(tmp, "r"),
+                     "--metrics", os.path.join(tmp, "r.jsonl")]
+        # the uninterrupted child runs beside the preempted one: separate
+        # processes, and nothing on this path depends on the card's load
+        child_u = _start_train_child(uninterrupted)
+        try:
+            rc_p, out_p = _train_child(preempted, stop_after=PREEMPT_AFTER)
+        finally:
+            rc_u, out_u = _train_child(uninterrupted, child=child_u)
+        stopped = max(_train_metrics(os.path.join(tmp, "r.jsonl")))
+        saved = sorted(os.listdir(os.path.join(tmp, "r")))
+        # the resumed child runs beside (c) and (d), which gate correctness
+        # only; its result is read after them
+        child_r = _start_train_child([*preempted, "--resume"])
+        seconds["preempt"] = time.perf_counter() - t0
+        release_card_memory(torch, "train: microbatches")
+        try:
+            (c_row, d_row), seconds_cd = _train_micro_and_dp(torch, dev, cfg, data, tmp)
+        except BaseException:
+            child_r.kill()
+            child_r.wait()
+            raise
+        seconds.update(seconds_cd)
+        t0 = time.perf_counter()
+        rc_r, out_r = _train_child([*preempted, "--resume"], child=child_r)
+        resume_s = seconds["resume_wait"] = time.perf_counter() - t0
+        full = _train_metrics(os.path.join(tmp, "u.jsonl"))
+        got = _train_metrics(os.path.join(tmp, "r.jsonl"))
+        losses_equal = (sorted(got) == sorted(full) == list(range(1, RESUME_STEPS + 1))
+                        and all(got[s]["loss"] == full[s]["loss"] for s in full))
+        a = _checkpoint_bytes(os.path.join(tmp, "u"), RESUME_STEPS)
+        b = _checkpoint_bytes(os.path.join(tmp, "r"), RESUME_STEPS)
+        state_equal = sorted(a) == sorted(b) and all(
+            a[k].tobytes() == b[k].tobytes() for k in a)
+        row["resume"] = {
+            "rc": {"uninterrupted": rc_u, "preempted": rc_p, "resumed": rc_r},
+            "sigterm_after_step": PREEMPT_AFTER, "stopped_at_step": stopped,
+            "checkpoints_at_exit": saved,
+            "checkpointed_on_signal": "checkpoint-and-exit" in out_p,
+            "resumed_from": [l for l in out_r.splitlines() if "resumed" in l],
+            "losses_bitwise": losses_equal, "final_state_bitwise": state_equal,
+            "checkpoint_leaves": len(a), "waited_s": resume_s}
+        row["microbatches"], row["data_parallel"] = c_row, d_row
+        del a, b
+        release_card_memory(torch, "train: guard")
+
+        # (e) the kernel routes refuse gradients on the card
+        t0 = time.perf_counter()
+        row["guard"] = _train_guard(torch, dev, get_smoke_config, Model, moe_apply)
+        seconds["guard"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["kernel_launches"] = {mod.__name__.rsplit(".", 1)[-1]: mod.launches.count
+                              for mod in mods}
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    tr, rs, mb, dp = row["trainer"], row["resume"], row["microbatches"], row["data_parallel"]
+    if tr["rc"] != 0 or not all(math.isfinite(x) for x in tr["losses"]):
+        fail(f"train: the trainer returned {tr['rc']}, losses {tr['losses']}")
+    fit = tr["trained_batches_mean_loss"]
+    if not fit["final"] < fit["initial"]:
+        fail(f"train: the trained batches' loss did not fall: {fit}")
+    if rs["rc"] != {"uninterrupted": 0, "preempted": 0, "resumed": 0}:
+        fail(f"train: a trainer child failed: {rs['rc']}")
+    if not (rs["checkpointed_on_signal"] and PREEMPT_AFTER <= rs["stopped_at_step"] < RESUME_STEPS):
+        fail(f"train: the SIGTERM'd child did not stop and checkpoint mid-run: {rs}")
+    if not (rs["losses_bitwise"] and rs["final_state_bitwise"]):
+        fail(f"train: the resumed run differs from the uninterrupted one: {rs}")
+    if not (mb["loss_rel_diff"] <= MICRO_RTOL and mb["grad_max_rel_norm_diff"] <= 1e-4
+            and mb["param_max_abs_diff_conditioned"] < MICRO_PARAM_ATOL):
+        fail(f"train: microbatches 1 and 2 differ: {mb}")
+    if not (dp["fabrics_allclose"] and dp["bytes_equal_cpu"]
+            and dp["trained_batches_mean_loss"]["final"]
+            < dp["trained_batches_mean_loss"]["initial"]):
+        fail(f"train: the DP trainer failed: {dp}")
+    if not all(row["guard"].values()):
+        fail(f"train: a kernel route did not refuse a gradient: {row['guard']}")
+    if any(row["kernel_launches"].values()):
+        fail(f"train: the plain route launched kernels: {row['kernel_launches']}")
+    return row
+
+
+def _train_guard(torch, dev, get_smoke_config, Model, moe_apply) -> dict:
+    """Each of K3-K6 refuses a gradient on CUDA tensors: a ``use_kernels=True``
+    model's loss (K4: minitron-4b's smoke config; K5: mamba2-130m's), its
+    decode step (K3) and an MoE layer (K6: moonshot-v1-16b-a3b's), each with
+    parameters that require grad; the refusal names the kernel."""
+    from repro_torch.core import _tree
+
+    def grad_params(arch):
+        cfg = get_smoke_config(arch).replace(use_kernels=True)
+        model = Model(cfg)
+        p = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        return model, _tree.unflatten(_tree.flatten(p)[1],
+                                      [x.requires_grad_(True) for x in _tree.leaves(p)])
+
+    def refuses(kernel, fn) -> bool:
+        try:
+            fn()
+        except RuntimeError as e:
+            return kernel in str(e) and "use_kernels=False" in str(e)
+        return False
+
+    tok = torch.randint(0, 100, (2, 16), device=dev, dtype=torch.int32)
+    batch = {"tokens": tok, "labels": tok}
+    dense, dense_p = grad_params("minitron-4b")
+    ssm, ssm_p = grad_params("mamba2-130m")
+    moe, moe_p = grad_params("moonshot-v1-16b-a3b")
+    with torch.no_grad():           # the cache from the plain route: no launch
+        _, cache, pos = Model(dense.cfg.replace(use_kernels=False)).prefill(
+            _tree.unflatten(_tree.flatten(dense_p)[1],
+                            [x.detach() for x in _tree.leaves(dense_p)]),
+            {"tokens": tok}, cache_len=32)
+    x = torch.randn(2, 16, moe.cfg.d_model, device=dev, dtype=torch.bfloat16)
+    layer = _tree.unflatten(_tree.flatten(moe_p["layers"]["moe"])[1],
+                            [v[0] for v in _tree.leaves(moe_p["layers"]["moe"])])
+    return {
+        "flash_attention": refuses("flash_attention", lambda: dense.loss(dense_p, batch)),
+        "flash_decode": refuses("flash_decode", lambda: dense.decode_step(
+            dense_p, tok[:, :1], cache, pos)),
+        "ssd_scan": refuses("ssd_scan", lambda: ssm.loss(ssm_p, batch)),
+        "grouped_matmul": refuses("grouped_matmul", lambda: moe_apply(layer, x, moe.cfg)),
+    }
+
+
 def phase_serve(torch):
     """minitron-4b at full width (bf16, random weights from seed 0) served
     with the kernels: continuous mode, then wave mode, each with the launch
@@ -3716,6 +4219,8 @@ def main() -> int:
     kbusy, kbusy_launches = phase_fib_alignment(torch, peaks)
     claims_k1, claims_paths, claims_rows, claims_busy = phase_paper_claims(torch)
     kbusy_launches += claims_busy
+    release_card_memory(torch, "phase_train")
+    phase_train(torch, card)
     for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths),
                             (strag_k1, strag_paths), (ck_k1, ck_paths),
                             (claims_k1, claims_paths)):
@@ -3728,10 +4233,10 @@ def main() -> int:
                 for p in lu_rows[0]["bmod_path_launches"]}
     serve_runs = []
     for phase in (phase_serve, phase_serve_pool, phase_serve_load, phase_serve_moe):
-        release_card_memory(torch)
+        release_card_memory(torch, phase.__name__)
         serve_runs += phase(torch).values()
     for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
-        release_card_memory(torch)
+        release_card_memory(torch, f"phase_serve_state {arch}")
         serve_runs += phase_serve_state(torch, arch, n).values()
 
     def served(kernel):
@@ -3742,7 +4247,7 @@ def main() -> int:
                 paths[p] = paths.get(p, 0) + n
         return sum(r.get(f"{kernel}_launches", 0) for r in serve_runs), paths
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "card": card, "peaks": peaks})
+          "card": card, "peaks": peaks, "card_memory": CARD_MEMORY})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path_launches")
     rows = [

@@ -1,9 +1,11 @@
 """Device resolution under the port's rule: the card unless asked otherwise;
-and the CUDA streams the port's virtual devices and graph captures borrow."""
+the CUDA streams that graph captures borrow; and the worker threads, each
+with a stream of its own, that the port's virtual devices borrow."""
 from __future__ import annotations
 
+import queue
 import threading
-from typing import Dict, List, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -53,3 +55,79 @@ def give_stream(device: torch.device, stream: "torch.cuda.Stream") -> None:
     stream.synchronize()
     with _free_streams_lock:
         _free_streams.setdefault(device, []).append(stream)
+
+
+class WorkerJob:
+    """One job handed to a :class:`CardWorker`: ``join`` and ``is_alive``
+    as a ``threading.Thread`` has them, for the job, not the thread."""
+
+    def __init__(self) -> None:
+        self._done = threading.Event()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        self._done.wait(timeout)
+
+    def is_alive(self) -> bool:
+        return not self._done.is_set()
+
+
+class CardWorker:
+    """A daemon thread on one card that keeps one stream for its whole life.
+
+    PyTorch gives each thread a cuBLAS handle of its own and keeps a 32 MiB
+    workspace for every (handle, stream) pair a matmul ran on until the
+    process ends.  A virtual device borrows a worker, thread and stream
+    together (:func:`take_worker`), and the worker goes back on its card's
+    free list when the device's job ends, so the next runtime's devices run
+    on the same pairs and the card's memory does not grow runtime by
+    runtime."""
+
+    _made = 0
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        self._jobs: "queue.SimpleQueue" = queue.SimpleQueue()
+        CardWorker._made += 1
+        self.thread = threading.Thread(target=self._loop, daemon=True,
+                                       name=f"omp-card-worker{CardWorker._made}")
+        self.thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            fn, job = self._jobs.get()
+            ok = False
+            try:
+                fn()
+                ok = True
+            finally:
+                # an idle worker must not hold the job's closure: it would
+                # keep the finished pool, and every tensor on its devices
+                fn = None
+                # back on the free list before the joiner wakes, so that a
+                # runtime made right after this one's shutdown finds it; a
+                # job that raised ends the thread, which is not handed back
+                if ok:
+                    with _free_workers_lock:
+                        _free_workers.setdefault(self.device, []).append(self)
+                job._done.set()
+
+    def run(self, fn: Callable[[], None]) -> WorkerJob:
+        """Run ``fn`` on this worker's thread; the caller stops using the
+        worker once the returned job has ended."""
+        job = WorkerJob()
+        self._jobs.put((fn, job))
+        return job
+
+
+_free_workers: Dict[torch.device, List[CardWorker]] = {}
+_free_workers_lock = threading.Lock()
+
+
+def take_worker(device: torch.device) -> CardWorker:
+    """An idle worker on ``device`` (a CUDA device), or a new one."""
+    with _free_workers_lock:
+        free = _free_workers.get(device)
+        if free:
+            return free.pop()
+    return CardWorker(device)

@@ -4,13 +4,17 @@ An ``mpinode`` device in the paper is "simply a computer with MPI installed",
 listed in a configuration file; listing a node with a multiplier ``D`` starts
 ``D`` devices on it.  In this port every device is a *virtual share* of one
 card (or of the CPU, for the tests): each :class:`NodeDevice` owns a
-:class:`MediaryStore` on that ``torch.device`` and, on the card, its own
-``torch.cuda.Stream``.  The host side owns one :class:`HostMirror` per device
+:class:`MediaryStore` on that ``torch.device`` and, on the card, runs on the
+stream of its worker.  The host side owns one :class:`HostMirror` per device
 plus a per-device mutex (paper §4.2), and every transfer is accounted in a
 :class:`CostModel`.
 
 Commands run on one worker thread per device, each issued under that
-device's stream.  A command that hands a value to the host or to another
+device's stream.  On the card the thread and its stream are borrowed
+together (``_device.take_worker``) and go back to the card's free list when
+the device stops, so a new runtime's devices run on the same (thread,
+stream) pairs as the last one's, and PyTorch keeps no new cuBLAS workspace
+for them.  A command that hands a value to the host or to another
 device (EXEC, XFER_TO, SEND, RECV) synchronizes its stream before its future
 resolves, so a reader on any other stream or thread only ever sees finished
 data, and the caching allocator can reuse a freed block without
@@ -35,7 +39,7 @@ command (EXEC, XFER_FROM): a blown deadline raises :class:`StragglerTimeout`,
 a :class:`DeviceFailure` that recovery treats like any other.
 
 Membership is elastic: :meth:`DevicePool.add_device` appends a device (a
-new virtual share of the same card, with a stream and a worker of its own)
+new virtual share of the same card, with a worker and its stream of its own)
 and :meth:`DevicePool.remove_tail` stops and drops the last ones;
 ``repro_torch.ft.rescale_pool`` drains a departing device's resident state
 first.
@@ -55,7 +59,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._device import DeviceLike, give_stream, resolve_device, take_stream
+from .._device import DeviceLike, resolve_device, take_worker
 from . import _tree
 from .costmodel import CostModel, LinkModel, PAPER_ETHERNET
 from .kernel_table import GLOBAL_KERNEL_TABLE, KernelTable
@@ -117,7 +121,9 @@ class NodeDevice:
         # resident-memory budget for this device's present table (None =
         # unbounded); enforced by the executor's LRU spill path, not here
         self.capacity_bytes = capacity_bytes
-        self.stream = take_stream(device) if device.type == "cuda" else None
+        # on the card, the borrowed worker's stream, set by the pool that
+        # starts the device (``DevicePool._start_worker``)
+        self.stream: Optional["torch.cuda.Stream"] = None
 
     def stream_context(self):
         """Context that makes this device's stream current (no-op on the CPU)."""
@@ -218,8 +224,8 @@ class NodeDevice:
             return out
         if cmd.op == "STOP":
             self.stopped = True
-            if self.stream is not None:     # every command before it is done
-                give_stream(self.device, self.stream)
+            if self.stream is not None:     # every command before it is done;
+                self.stream.synchronize()   # the stream stays with its worker
                 self.stream = None
             return None
         raise ValueError(f"unknown command {cmd.op}")
@@ -446,12 +452,22 @@ class DevicePool:
         # with run length
         self.stream_traces: List["collections.deque[Command]"] = [
             collections.deque(maxlen=4096) for _ in self.devices]
-        self._workers = []
-        for i in range(len(self.devices)):
-            t = threading.Thread(target=self._worker, args=(i,),
-                                 name=f"omp-dev{i}", daemon=True)
-            t.start()
-            self._workers.append(t)
+        self._workers = [self._start_worker(i) for i in range(len(self.devices))]
+
+    def _start_worker(self, i: int):
+        """Start device ``i``'s command loop: on the card on a borrowed
+        worker, whose stream becomes the device's (the loop's job stands in
+        for the thread: ``join``, ``is_alive``); on the CPU on a thread of
+        its own."""
+        dev = self.devices[i]
+        if dev.device.type == "cuda":
+            worker = take_worker(dev.device)
+            dev.stream = worker.stream
+            return worker.run(lambda: self._worker(i))
+        t = threading.Thread(target=self._worker, args=(i,),
+                             name=f"omp-dev{i}", daemon=True)
+        t.start()
+        return t
 
     # -- the per-device command-queue worker ---------------------------------
     def _worker(self, device: int) -> None:
@@ -923,7 +939,7 @@ class DevicePool:
         """Grow the pool by one device, placeable at once; returns its index.
 
         The newcomer is a :class:`NodeDevice` on device 0's ``torch.device``
-        with a stream of its own.  Every per-device list grows by one entry,
+        with a worker and a stream of its own.  Every per-device list grows by one entry,
         and the device itself is appended last, so a reader that sizes its
         loop by ``len(pool)`` never indexes state that is not there yet.
         The declare-target globals are installed on it, and it starts with
@@ -947,10 +963,7 @@ class DevicePool:
         self.stream_traces.append(collections.deque(maxlen=4096))
         self.health.mark_healthy(i)
         self.devices.append(dev)
-        t = threading.Thread(target=self._worker, args=(i,),
-                             name=f"omp-dev{i}", daemon=True)
-        t.start()
-        self._workers.append(t)
+        self._workers.append(self._start_worker(i))
         # declare-target globals exist on every device (paper §4.2)
         for name, value in self._global_values.items():
             h = self.alloc(i, value.shape, value.dtype, tag=f"global:{name}")

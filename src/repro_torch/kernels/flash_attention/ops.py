@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .flash_attention import flash_attention_cuda
 from .ref import flash_attention_ref
 
@@ -16,8 +17,10 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CUDA tensor launches the kernel (which reads this layout in place; its
     key tile is fixed at 64); a CPU tensor runs the plain version in the
     kernel's (batch·kv_heads, group) layout with key blocks of ``block_kv``;
-    anything else raises.
+    anything else raises.  Under grad mode, an input that requires grad raises
+    on either device (``kernels.refuse_grad``): the kernel has no backward.
     """
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     if q.device.type != "cpu":

@@ -6,6 +6,7 @@ from typing import Union
 
 import torch
 
+from .. import refuse_grad
 from .flash_decode import flash_decode_cuda
 from .ref import flash_decode_ref
 
@@ -20,8 +21,10 @@ def gqa_flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     ``[B·K]`` lengths, one per kv head of a sequence, are all that
     sequence's).  A CUDA tensor launches the kernel on the cache in place; a
     CPU tensor runs the plain version in the kernel's (batch·kv_heads)
-    layout with cache blocks of ``block_kv``; anything else raises.
+    layout with cache blocks of ``block_kv``; anything else raises.  Under grad mode, an input that requires grad raises
+    on either device (``kernels.refuse_grad``): the kernel has no backward.
     """
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     B, _, H, d = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     r = H // K

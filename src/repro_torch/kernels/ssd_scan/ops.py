@@ -6,6 +6,7 @@ from typing import Tuple
 
 import torch
 
+from .. import refuse_grad
 from .ref import ssd_chunked
 from .ssd_scan import ssd_scan_cuda
 
@@ -20,8 +21,10 @@ def ssd_chunked_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     A CUDA tensor launches the kernel on the operands in place, at the
     kernel's own chunk length (``ssd_scan.CHUNK``: ``chunk`` is not used
     there); a CPU tensor runs the plain version with ``chunk``; anything
-    else raises.
+    else raises.  Under grad mode, an input that requires grad raises
+    on either device (``kernels.refuse_grad``): the kernel has no backward.
     """
+    refuse_grad("ssd_scan", x, dt, A, B, C)
     if x.device.type == "cuda":
         return ssd_scan_cuda(x, dt, A, B, C)
     if x.device.type != "cpu":

@@ -35,6 +35,8 @@ def normal_init(gen: torch.Generator, shape, dtype: torch.dtype,
     Drawn whole, a stacked MoE leaf ([48, 64, 2048, 1408]: 35 GB of fp32)
     would not fit on the card beside the weights."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:                     # Model.init_abstract: no values
+        return out
     step = max(1, _DRAW_VALUES // out[0].numel())
     for i in range(0, out.shape[0], step):
         part = out[i:i + step]
@@ -150,3 +152,18 @@ def unembed_apply(p: Params, x: torch.Tensor, softcap: float = 0.0) -> torch.Ten
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in fp32; labels [B,S], logits [B,S,V]: logsumexp
+    minus the gold logit, averaged over the mask's sum (at least 1) when a
+    mask is given."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -1,13 +1,15 @@
 """Unified model facade (the port of ``repro/models/model.py``).
 
-``Model(cfg)`` exposes init / forward / prefill / decode_step / make_cache
-with the reference's batch-dict convention, so the server never branches on
-family.  It is an ``nn.Module`` that holds the parameter tree it made
+``Model(cfg)`` exposes init / loss / forward / prefill / decode_step /
+make_cache with the reference's batch-dict convention, so the trainer and
+the server never branch on family.  It is an ``nn.Module`` that holds the parameter tree it made
 (:meth:`init`) or loaded from the reference (:meth:`load_numpy`) as
 ``model.params``; like the reference's, its passes take the tree explicitly.
 
 Batch dict keys (all optional per family):
   tokens      [B, S_text] int32       decoder token ids
+  labels      [B, S_text] int32       next-token targets (training)
+  mask        [B, S_text] f32         loss mask (optional)
   embeds      [B, S_front, D]         frontend-stub embeddings (vlm)
   enc_embeds  [B, S_enc, D]           encoder frontend embeddings (audio encdec)
 
@@ -26,7 +28,19 @@ from torch import nn
 from .._device import DeviceLike, resolve_device
 from ..interop import params_from_numpy
 from . import hybrid, mamba_lm, transformer
-from .config import ModelConfig
+from .config import ModelConfig, param_count
+from .layers import cross_entropy_loss
+
+
+_INITS = {"hybrid": hybrid.hybrid_init, "ssm": mamba_lm.mamba_lm_init}
+
+
+class _MetaGenerator:
+    """Stands in for a generator in :meth:`Model.init_abstract`: the
+    initialisers make every leaf on its ``device``, ``meta``, and
+    ``layers.normal_init`` draws nothing there."""
+
+    device = torch.device("meta")
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -46,18 +60,37 @@ class Model(nn.Module):
         """Random parameters from ``generator``, on ``device`` (the card
         unless the caller asks for the CPU; raises without one)."""
         dev = resolve_device(device)
-        init = {"hybrid": hybrid.hybrid_init,
-                "ssm": mamba_lm.mamba_lm_init}.get(self.cfg.family, transformer.decoder_init)
+        init = _INITS.get(self.cfg.family, transformer.decoder_init)
         params = init(generator, self.cfg)
         if generator.device != dev:
             params = _to_device(params, dev)
         self.params = params
         return params
 
+    def init_abstract(self) -> Any:
+        """The parameter tree of :meth:`init` on the ``meta`` device: shapes
+        and dtypes, no storage (the template a checkpoint restores into)."""
+        init = _INITS.get(self.cfg.family, transformer.decoder_init)
+        return init(_MetaGenerator(), self.cfg)
+
     def load_numpy(self, tree: Any, device: DeviceLike = "cuda") -> Any:
         """The reference's parameters, as a tree of numpy arrays, on ``device``."""
         self.params = params_from_numpy(tree, device)
         return self.params
+
+    # -- training -------------------------------------------------------------
+    def loss(self, params: Any, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"ce", "moe_aux"}): next-token CE in fp32, plus 0.01 x the
+        MoE aux loss for the attention families.  Take gradients on the
+        plain route (``use_kernels=False``): the kernel wrappers refuse a
+        gradient."""
+        cfg = self.cfg
+        if cfg.family in ("hybrid", "ssm"):
+            logits, aux = self.forward(params, batch)
+            ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+            return ce, {"ce": ce, "moe_aux": aux}
+        return transformer.loss_fn(params, cfg, batch)
 
     # -- passes ---------------------------------------------------------------
     def forward(self, params: Any, batch: Dict[str, torch.Tensor]
@@ -130,3 +163,12 @@ class Model(nn.Module):
         if cfg.family == "ssm":
             return dict(mamba_lm.CACHE_BATCH_AXES)
         return transformer.cache_batch_axes(cfg)
+
+    # -- accounting -----------------------------------------------------------
+    def n_params(self) -> Tuple[int, int]:
+        """(total, active) parameter counts of the config."""
+        return param_count(self.cfg)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -20,8 +20,9 @@ import torch
 from .attention import (Pos, _project, attn_apply, attn_init, init_kv_cache,
                         project_memory, row_positions)
 from .config import ModelConfig
-from .layers import (Params, apply_rope, dtype_of, embed_apply, embed_init,
-                     mlp_apply, mlp_init, normal_init, rms_norm, unembed_apply)
+from .layers import (Params, apply_rope, cross_entropy_loss, dtype_of, embed_apply,
+                     embed_init, mlp_apply, mlp_init, normal_init, rms_norm,
+                     unembed_apply)
 from .moe import moe_apply, moe_init
 
 
@@ -177,6 +178,21 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: Optional[torch.Tensor] 
                          positions=torch.arange(S, dtype=torch.int32, device=x.device),
                          memory=memory)
     return _logits(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch
+            ) -> Tuple[torch.Tensor, dict]:
+    """Next-token CE (+ 0.01 x the MoE aux). batch: tokens/labels
+    (+embeds/enc_embeds, mask).  A frontend prefix is trimmed off the
+    logits so that they line up with the text labels."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"),
+                          enc_embeds=batch.get("enc_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:      # frontend prefix: trim to text
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    ce = cross_entropy_loss(logits, labels, batch.get("mask"))
+    return ce + 0.01 * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,12 @@ class _QMoment(NamedTuple):
     shape: Tuple[int, ...]
 
 
+# a node of the port's trees, so that a checkpoint stores its payload and
+# scales as leaves (``.../q``, ``.../scale``) and keeps its shape static
+_tree.register_node(_QMoment, lambda m: (("q", "scale"), (m.q, m.scale), m.shape),
+                    lambda shape, v: _QMoment(v[0], v[1], shape))
+
+
 def _encode(x: torch.Tensor, dtype: str):
     if dtype == "int8":
         c = comp.compress(x)
@@ -136,8 +142,8 @@ class AdamW:
 
         flat_p, tdef = _tree.flatten(params)
         out = [upd(p, g, m, v) for p, g, m, v in
-               zip(flat_p, _tree.leaves(grads), _tree.leaves(state["mu"]),
-                   _tree.leaves(state["nu"]))]
+               zip(flat_p, _tree.leaves(grads), _tree.subtrees_at(tdef, state["mu"]),
+                   _tree.subtrees_at(tdef, state["nu"]))]
         new_params = _tree.unflatten(tdef, [o[0] for o in out])
         new_mu = _tree.unflatten(tdef, [o[1] for o in out])
         new_nu = _tree.unflatten(tdef, [o[2] for o in out])

@@ -61,6 +61,11 @@ from repro_torch.kernels.ssd_scan.ssd_scan import ssd_path, ssd_plan, ssd_scan_c
 from repro_torch.models import Model
 from repro_torch.models.moe import moe_apply
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.configs import get_config
+from repro_torch.core import _tree
+from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.optim import AdamW, AdamWConfig
+from repro_torch.train import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -1266,9 +1271,10 @@ def test_calibration_gate_on_the_card(cuda_device):
 
 
 def test_runtimes_reuse_the_streams_of_stopped_devices(cuda_device):
-    """A stopped device hands its stream back and the next runtime's devices
-    take it, so PyTorch's per-stream cuBLAS workspaces (32 MiB each, kept for
-    the process's life) are not made anew for every runtime."""
+    """A stopped device hands its worker, and the worker's stream, back and
+    the next runtime's devices take them, so PyTorch's per-(handle, stream)
+    cuBLAS workspaces (32 MiB each, kept for the process's life) are not
+    made anew for every runtime."""
     mat = tbl._matrix(4, 64)
 
     def once():
@@ -1284,3 +1290,89 @@ def test_runtimes_reuse_the_streams_of_stopped_devices(cuda_device):
 
     first = once()
     assert once() == first and once() == first
+
+
+def test_runtimes_leave_the_card_memory_flat(cuda_device):
+    """Ten D=8 runtimes in turn, each running a cuBLAS matmul on every
+    device: the card's allocated bytes after the tenth shutdown equal those
+    after the second, byte for byte (each device's worker thread keeps its
+    cuBLAS handle and its stream, so no new workspace is made), and no idle
+    worker keeps a finished pool alive."""
+    table = KernelTable()
+    table.register("mm", lambda a, b: {"out": a @ b})
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(256, 256, generator=g), torch.randn(256, 256, generator=g)
+    spec = TensorSpec((256, 256), torch.float32)
+    after = []
+    for _ in range(10):
+        rt = ClusterRuntime(RuntimeConfig(n_virtual=8), table=table, device=cuda_device)
+        try:
+            outs = [rt.ex.target("mm", d, MapSpec(to={"a": a, "b": b}, from_={"out": spec}))
+                    for d in range(8)]
+        finally:
+            rt.shutdown()
+        assert all(torch.allclose(o["out"], a @ b, rtol=1e-5, atol=1e-4) for o in outs)
+        pool = weakref.ref(rt.pool)
+        del rt, outs
+        gc.collect()
+        assert pool() is None
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(cuda_device))
+    assert after[9] == after[1], after
+
+
+@pytest.mark.parametrize("kernel", ["flash_decode", "flash_attention", "ssd_scan",
+                                    "grouped_matmul"])
+def test_kernel_wrappers_refuse_gradients_on_the_card(cuda_device, kernel):
+    """On CUDA tensors each K3-K6 wrapper raises under grad mode when an
+    input requires grad, before it launches; under ``no_grad`` it launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_(True)
+
+    calls = {
+        "flash_decode": (k3, lambda: gqa_flash_decode(r(2, 1, 4, 64), r(2, 64, 2, 64),
+                                                      r(2, 64, 2, 64), 40)),
+        "flash_attention": (k4, lambda: gqa_flash_attention(r(2, 64, 4, 64),
+                                                            r(2, 64, 2, 64),
+                                                            r(2, 64, 2, 64))),
+        "ssd_scan": (k5, lambda: ssd_chunked_scan(
+            r(1, 64, 2, 64), torch.rand(1, 64, 2, device=cuda_device),
+            -torch.rand(2, device=cuda_device), r(1, 64, 1, 64), r(1, 64, 1, 64))),
+        "grouped_matmul": (k6, lambda: expert_ffn_matmul(r(2, 16, 64), r(2, 64, 64))),
+    }
+    mod, call = calls[kernel]
+    before = mod.launches.count
+    with pytest.raises(RuntimeError, match=f"{kernel}.*use_kernels=False"):
+        call()
+    assert mod.launches.count == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert mod.launches.count > before
+
+
+def test_full_width_train_step_is_deterministic(cuda_device):
+    """mamba2-130m at its full config (bf16), batch 8 x 256: one train step
+    run twice from the same state gives the same loss, gradient norm and
+    parameters, bit for bit."""
+    model = Model(get_config("mamba2-130m"))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    opt = AdamW(AdamWConfig(lr=3e-4))
+    state = opt.init(params)
+    pf = Prefetcher(SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq=256, global_batch=8)),
+                    device=cuda_device, max_steps=1)
+    (batch,) = list(pf)
+    pf.close()
+    step = make_train_step(model, opt)
+    runs = [step(params, state, batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    (p1, _, m1), (p2, _, m2) = runs
+    assert np.isfinite(float(m1["loss"]))
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(m1[k], m2[k]), k
+    assert all(torch.equal(a.view(-1).view(torch.int16), b.view(-1).view(torch.int16))
+               if a.dtype == torch.bfloat16 else torch.equal(a, b)
+               for a, b in zip(_tree.leaves(p1), _tree.leaves(p2)))
