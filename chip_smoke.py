@@ -148,7 +148,22 @@ runs, printing one JSON line per phase:
    logits), and a full-width fp32 model of one group (6 layers) whose
    greedy tokens must be equal on both routes; then mamba2-130m at its full
    config (24 layers, N = 128), one continuous and one wave run, its fp32
-   greedy tokens equal on both routes.
+   greedy tokens equal on both routes;
+9. the last modules: ``repro_torch.launch.serve``'s CLI at minitron-4b's
+   full width (after the serve phase; its tokens equal to a ``ServeEngine``
+   driven directly, bit for bit) and ``repro_torch.examples.offload_serve``
+   on a 2-device pool at full width (the ``launch_serve`` row); after the
+   state phases, the perf gate's trajectory half on the card
+   (``comm_modes --smoke``, ``sched_policies`` and ``topo_collectives
+   --smoke`` as children, each against its committed ``BENCH_*.json``
+   within 15%, and the serve_load sections against ``BENCH_serve.json``;
+   every K2 of the children on ``cp_async``), ``repro_torch.kernels_bench``
+   in a child (K4's and K5's timed rows, the tensor-core kernels' resources
+   at their served launches), the dry run over every (architecture × shape)
+   cell on ``meta`` with ``memory_allocated`` unchanged and the roofline
+   table rendered, and each served config's decode step and the trainer's step beside
+   ``launch.hlo_analysis.analyze_step``'s bound (the ``roofline_shares``
+   row: reported).
 
 Every serve phase decodes through captured CUDA graphs (``serve/graph.py``),
 and reports per mode the graphs captured, the replays and the decode seconds
@@ -193,6 +208,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -516,12 +532,14 @@ def phase_card_and_build():
     t0 = time.perf_counter()
     report = _build.build(force=True, ptxas_verbose=True)
     seconds = time.perf_counter() - t0
+    BUILD_REPORT.update(report)
     hgmma = {name: _build.sass_count(name)
              for name in ("flash_attention", "grouped_matmul", "ssd_scan")}
     emit({"phase": "build", "card": card, "seconds": seconds,
           "library_seconds": {name: r["seconds"] for name, r in report.items()},
           "hgmma_instructions": hgmma, "k1_sass_loops": _k1_sass_loops(_build),
-          "ptxas": {name: _ptxas_by_kernel(_build, r["log"]) for name, r in report.items()}})
+          "ptxas": {name: _build.ptxas_by_kernel(r["log"], _build.nvcc())
+                    for name, r in report.items()}})
     if not all(hgmma.values()):
         fail(f"a tensor-core library holds no HGMMA instruction: {hgmma}")
     return card
@@ -542,37 +560,6 @@ def _k1_sass_loops(_build) -> dict:
     return {"chunk": chunk, "chunk_iterations": CHUNK,
             "chunk_per_iteration": chunk and {k: chunk[k] / CHUNK for k in keep},
             "exact": [loop for loop in loops if loop is not chunk]}
-
-
-def _ptxas_by_kernel(_build, log: str) -> dict:
-    """``-Xptxas -v``'s registers and spills, keyed by each kernel's
-    demangled name (template arguments kept, parameters dropped)."""
-    rows, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            name = m.group(1)
-        elif name and re.search(r"registers|spill", ln):
-            rows.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
-    filt = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
-    names = list(rows)
-    out = subprocess.run([filt, *names], capture_output=True, text=True).stdout.splitlines()
-    return {_kernel_name(sn): "; ".join(rows[n])
-            for sn, n in zip(out if len(out) == len(names) else names, names)}
-
-
-def _kernel_name(demangled: str) -> str:
-    """``void <unnamed>::wg::k<(int)128>(CUtensorMap_st, ...)`` →
-    ``wg::k<128>``: namespaces and casts dropped, the parameters cut at the
-    first parenthesis outside the template arguments."""
-    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "",
-                  demangled)
-    depth = 0
-    for i, ch in enumerate(name):
-        depth += (ch == "<") - (ch == ">")
-        if ch == "(" and depth == 0:
-            return name[:i]
-    return name
 
 
 def phase_kernels(torch, peaks):
@@ -3141,11 +3128,11 @@ def phase_train(torch, card: str) -> dict:
         g moves the step by up to lr); the largest difference over every
         element is reported;
     (d) the runtime as the DP trainer: full width in fp32 on D=4 virtual
-        devices, 2 sequences x 256 each, 6 exchanges of
+        devices, 2 sequences x 256 each, ``TRAIN_DP_STEPS`` exchanges of
         ``data_parallel_grads("lm_grads")`` in both fabrics from the same
         host parameters, each followed by the host's AdamW step at lr 3e-3
         (the reference's ``tests/test_system.py``; computed on the card): the fabrics' mean gradients
-        within rtol 1e-5; the final parameters' mean loss over the 6 trained
+        within rtol 1e-5; the final parameters' mean loss over the trained
         batches below the initial parameters'; the byte counters equal to a
         CPU run's at the same trees (``dp_cpu_bytes``, in a child beside the
         card's run).  Reported: the loss on each step's batch after its
@@ -3699,6 +3686,7 @@ def phase_serve_load(torch):
     k3_path = decode_path(torch.empty(1, cfg.n_heads, cfg.head_dim, device=meta),
                           torch.empty(1, sl.MAX_LEN, cfg.n_kv, cfg.head_dim, device=meta))
     tokens = {name: sec.pop("tokens") for name, sec in sections.items()}
+    LOAD_SECTIONS.update(sections)
     bf = tokens["continuous_vs_wave_bfloat16"]
     agree = sum(a == b for rid in bf["wave"]
                 for a, b in zip(bf["wave"][rid], bf["continuous"][rid]))
@@ -4179,6 +4167,277 @@ def _leaves(tree):
     return [] if tree is None else [tree]
 
 
+# launch_serve: repro_torch.launch.serve's CLI at full width, then the
+# offload_serve example's pool loop on POOL_DEVICES virtual devices
+LAUNCH_SERVE_ARGS = ("--arch", SERVE_ARCH, "--preset", "full", "--requests", "8",
+                     "--batch", "4", "--prompt-len", "512", "--max-new", "16",
+                     "--max-len", "1024", "--dtype", "bfloat16")
+OFFLOAD_SERVE_ARGS = ("--pool", "--devices", str(POOL_DEVICES), "--arch", SERVE_ARCH,
+                      "--preset", "full")
+# bench_trajectory: the perf gate's benches run as children on the card
+# (serve is held from the serve_load phase's sections, not run again)
+TRAJECTORY_BENCHES = ("comm", "sched", "topo")
+NOISE_BAND_PCT = 15.0
+#: the build's report (nvcc seconds and -Xptxas -v logs per library)
+BUILD_REPORT: dict = {}
+#: the serve_load phase's sections, for the trajectory gate's serve compare
+LOAD_SECTIONS: dict = {}
+
+
+def phase_launch_serve(torch):
+    """``repro_torch.launch.serve.main`` on the card at ``SERVE_ARCH``'s full
+    width (``LAUNCH_SERVE_ARGS``: 8 requests of 512 tokens, batch 4, 16 new
+    tokens, a 1024-row cache, bf16, random weights from seed 0), its K3/K4
+    counts set to 0 just before and read just after; then a ``ServeEngine``
+    driven directly with the CLI's weights, requests and config; then
+    ``repro_torch.examples.offload_serve`` with ``OFFLOAD_SERVE_ARGS`` (the
+    streaming submit/step loop lowered onto a 2-device pool under SLO, at
+    full width: its own weights from seed 0, one resident copy per device,
+    beside nothing else on the card).
+
+    Gated: the CLI's greedy tokens equal the direct engine's bit for bit;
+    every K4 launch ``wgmma`` (the CLI's continuous prefills are pad-masked,
+    so K4 launches in offload_serve's B = 1 prefills only) and every K3 of
+    the CLI and the direct engine ``split``, K3 in each run and K4 in
+    offload_serve; every offload_serve request its budget (the example's own
+    assert)."""
+    from repro_torch.examples import offload_serve
+    from repro_torch.kernels.flash_attention import flash_attention as k4mod
+    from repro_torch.kernels.flash_decode import flash_decode as k3mod
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    mods = (k4mod, k3mod)
+    runs, out = {}, {}
+    _reset_counts(*mods)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = launch_serve.main(list(LAUNCH_SERVE_ARGS), out=out)
+    torch.cuda.synchronize()
+    runs["launch_serve"] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                            "serve_wall_s": out["wall_s"], **out["graph_stats"],
+                            **_kernel_counts(mods)}
+    cli = {rid: r.tokens for rid, r in out["results"].items()}
+    eng = ServeEngine(out["model"], out["params"], out["serve_config"],
+                      frontend_seq=out["frontend_seq"])
+    _reset_counts(*mods)
+    t0 = time.perf_counter()
+    direct = {rid: r.tokens for rid, r in eng.serve(out["requests"]).items()}
+    torch.cuda.synchronize()
+    runs["direct_engine"] = {"wall_s": time.perf_counter() - t0, **_kernel_counts(mods)}
+    n_new = sum(len(t) for t in cli.values())
+    del eng, out
+    release_card_memory(torch, "launch_serve: offload_serve")
+
+    pool_out = {}
+    _reset_counts(*mods)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc_pool = offload_serve.main(list(OFFLOAD_SERVE_ARGS), out=pool_out)
+    torch.cuda.synchronize()
+    runs["offload_serve"] = {
+        "rc": rc_pool, "wall_s": time.perf_counter() - t0,
+        "requests": len(pool_out["requests"]),
+        "new_tokens": sum(len(r.tokens) for r in pool_out["results"].values()),
+        "full_budgets": all(len(pool_out["results"][r.rid].tokens) == r.max_new_tokens
+                            for r in pool_out["requests"]),
+        "migrations": pool_out["migrations"], "evictions": pool_out["evictions"],
+        "refetches": pool_out["refetches"], **_kernel_counts(mods)}
+    del pool_out
+    row = {"phase": "launch_serve", "argv": list(LAUNCH_SERVE_ARGS),
+           "offload_argv": list(OFFLOAD_SERVE_ARGS), "config": "full width",
+           "requests": len(cli), "new_tokens": n_new,
+           "tokens_equal_direct_engine": cli == direct, **runs,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if rc != 0 or rc_pool != 0:
+        fail(f"launch_serve: the CLI returned {rc}, offload_serve {rc_pool}")
+    if cli != direct:
+        fail("launch_serve: the CLI's tokens differ from the engine driven directly")
+    if not runs["offload_serve"]["full_budgets"]:
+        fail("launch_serve: an offload_serve request did not get its budget")
+    served = {k: r for k, r in runs.items() if k != "offload_serve"}
+    _check_k4_paths(f"{SERVE_ARCH} launch_serve", runs)
+    _check_k3_paths(f"{SERVE_ARCH} launch_serve", served)
+    # the CLI serves continuously: its prefills are pad-masked and take the
+    # plain attention (as the serve phase's continuous run), so K4 runs in
+    # offload_serve's unmasked B = 1 prefills
+    for name, r in runs.items():
+        if not r["flash_decode_launches"] or (name == "offload_serve"
+                                              and not r["flash_attention_launches"]):
+            fail(f"launch_serve {name}: K4/K3 launched {r['flash_attention_launches']}/"
+                 f"{r['flash_decode_launches']} times")
+    return runs
+
+
+def phase_bench_trajectory(torch):
+    """The perf gate's trajectory half on the card
+    (``repro_torch.perf_gate.trajectory_gate``): ``comm_modes --smoke``,
+    ``sched_policies`` and ``topo_collectives --smoke`` as child processes
+    on the card, all at once, each held against its committed
+    ``BENCH_*.json`` within ``NOISE_BAND_PCT``; and the serve_load phase's
+    sections (fp32 section 1, bf16 section 2) against ``BENCH_serve.json``
+    through the same ``compare`` (the open-loop load is not run again).
+
+    Gated: no failure; the sched and topo children launched K2, every
+    launch on ``cp_async``.  Returns the children's K2 and wire-kernel
+    launches."""
+    from repro_torch import perf_gate
+    t_phase = time.perf_counter()
+    fails, detail = perf_gate.trajectory_gate(NOISE_BAND_PCT, device="cuda",
+                                              names=TRAJECTORY_BENCHES)
+    with open(os.path.join(perf_gate.BENCH_DIR, "BENCH_serve.json")) as f:
+        base = json.load(f)
+    fresh = {"benchmark": "serve_load", "sections": {
+        "continuous_vs_wave": LOAD_SECTIONS["continuous_vs_wave_float32"],
+        "slo_vs_roundrobin": LOAD_SECTIONS["slo_vs_roundrobin"]}}
+    serve_fails = perf_gate.compare("serve", base, fresh, NOISE_BAND_PCT)
+    detail["serve"] = {"status": "fail" if serve_fails else "ok",
+                       "gated_metrics": perf_gate.n_gated("serve", base),
+                       "failures": serve_fails, "from": "phase serve_load"}
+    fails += serve_fails
+    k2 = {name: detail[name].get("launches", {}).get("block_lu", {})
+          for name in ("sched", "topo")}
+    q8 = sum(d.get("launches", {}).get("q8_wire", {}).get("launches", 0)
+             for d in detail.values())
+    row = {"phase": "bench_trajectory", "noise_band_pct": NOISE_BAND_PCT,
+           "failures": fails, "detail": detail, "bmod": k2, "q8_wire_launches": q8,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if fails:
+        fail(f"bench_trajectory: {fails}")
+    for name, c in k2.items():
+        if not c.get("launches") or c["paths"]["cp_async"] != c["launches"]:
+            fail(f"bench_trajectory {name}: bmod launched {c}; expected every launch "
+                 f"on cp_async")
+    return ([{"bmod_launches": c["launches"], "bmod_path_launches": c["paths"]}
+             for c in k2.values()], q8)
+
+
+def phase_dryrun_roofline(torch):
+    """``repro_torch.launch.dryrun --all`` on ``meta`` (every cell's
+    parameters, moments, inputs and cache counted, nothing allocated), then
+    ``repro_torch.roofline`` renders ``build/roofline_table.md``.
+
+    Gated: ``torch.cuda.memory_allocated`` unchanged across the dry run;
+    every non-skipped cell written.  Reported: each cell's ``fits_one_card``
+    and bound."""
+    from repro_torch import roofline
+    from repro_torch.configs import ARCHS, shape_cells
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    out = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with contextlib.redirect_stdout(log):
+        rc = dryrun.main(["--all", "--out", out])
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    cells = {}
+    for fn in sorted(glob.glob(os.path.join(out, "*.json"))):
+        with open(fn) as f:
+            rec = json.load(f)
+        cells[f"{rec['arch']} x {rec['shape']}"] = {
+            "fits_one_card": rec["fits_one_card"],
+            "argument_GB": rec["memory_analysis"]["argument_bytes"] / 1e9,
+            "bottleneck": rec["bottleneck"],
+            "t_bound_s": max(rec["t_compute_s"], rec["t_memory_s"])}
+    want = sum(1 for a in ARCHS for _, st, _ in shape_cells(a) if st == "run")
+    table = os.path.join(ROOT, "build", "roofline_table.md")
+    with contextlib.redirect_stdout(log):
+        rc_roof = roofline.main(["--dryrun", out, "--out", table])
+    row = {"phase": "dryrun_roofline", "rc": rc, "roofline_rc": rc_roof,
+           "allocated_before": before, "allocated_after": after, "cells": cells,
+           "fits_one_card": sum(c["fits_one_card"] for c in cells.values()),
+           "table": os.path.relpath(table, ROOT), "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    if rc != 0 or rc_roof != 0 or len(cells) != want:
+        fail(f"dryrun_roofline: dryrun {rc}, roofline {rc_roof}, {len(cells)} of {want} cells")
+    if after != before:
+        fail(f"dryrun_roofline: the dry run moved memory_allocated {before} -> {after}")
+
+
+def phase_kernels_bench(torch):
+    """``python -m repro_torch.kernels_bench`` on the card, in a child
+    process (a fresh interpreter's profiler: in this process, after the
+    earlier phases' profiled runs, the exported trace once held no kernel
+    event on the H100): the tensor-core kernels' resources per CTA (this
+    run's ``-Xptxas -v`` logs, handed over, and one profiled launch at each
+    served shape) and K4's and K5's timed rows beside their plain versions;
+    its calibration profile goes to ``build/calibration/`` for the roofline
+    table.  Gated: every timed row finite and on the tensor-core path, every
+    tile row with its served launch recorded.  Returns the child's launch
+    counts."""
+    t_phase = time.perf_counter()
+    tmp = os.path.join(ROOT, "build", "kernels_bench")
+    os.makedirs(tmp, exist_ok=True)
+    paths = {k: os.path.join(tmp, f"{k}.json") for k in ("logs", "rows", "launches")}
+    with open(paths["logs"], "w") as f:
+        json.dump({name: r["log"] for name, r in BUILD_REPORT.items()}, f)
+    profile = os.path.join(ROOT, "build", "calibration", "kernels_bench.json")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.kernels_bench", "--ptxas-logs", paths["logs"],
+         "--rows", paths["rows"], "--launches", paths["launches"], "--json", profile],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"kernels_bench exited {proc.returncode}: {proc.stdout[-1500:]} "
+             f"{proc.stderr[-1500:]}")
+    with open(paths["rows"]) as f:
+        rows = json.load(f)
+    with open(paths["launches"]) as f:
+        launches = json.load(f)
+    counts = {}
+    for name, c in launches.items():
+        counts[f"{name}_launches"] = c["launches"]
+        counts[f"{name}_paths"] = c["paths"]
+    row = {"phase": "kernels_bench",
+           "rows": [{k: v for k, v in r.items() if not k.startswith("_")} for r in rows],
+           "profile": os.path.relpath(profile, ROOT), **counts,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    for r in rows:
+        if "ms" in r:
+            if not (math.isfinite(r["ms"]) and r["ms"] > 0 and r["path"] == "wgmma"):
+                fail(f"kernels_bench: {r}")
+        elif not (r["launches"] and r["launches"][0]["name"]):
+            fail(f"kernels_bench: no launch recorded at {r['kernel']}'s served shape: {r}")
+    return counts
+
+
+def roofline_shares(torch, waves: dict, train_row: dict) -> dict:
+    """Report, not gate: ``launch.hlo_analysis.analyze_step``'s memory and
+    compute terms at the H100's roofs beside each served config's measured
+    decode seconds a step (its captured wave, batch 4, the cache at the
+    prompt plus half the budget), and the train phase's ms a step beside
+    ``analyze_step(cfg, "train", 256, 8)``: the bound's share of the
+    measured step.  The share divides by the port's bound
+    (``cost="port"``: no recompute, only routed experts);
+    ``reference_bound_share`` by the reference's count, beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_analysis import analyze_step
+
+    def row(cfg, kind, seq, batch, step):
+        rf = analyze_step(cfg, kind, seq, batch)
+        ref = analyze_step(cfg, kind, seq, batch, cost="reference")
+        return {"kind": kind, "seq": seq, "batch": batch, "t_memory_s": rf.t_memory,
+                "t_compute_s": rf.t_compute, "measured_s_per_step": step,
+                f"{kind}_roofline_share": rf.t_bound / step if step else None,
+                "reference_t_memory_s": ref.t_memory, "reference_t_compute_s": ref.t_compute,
+                "reference_bound_share": ref.t_bound / step if step else None}
+    out = {arch: row(get_config(arch), "decode", SERVE_PROMPT + budget // 2, SERVE_BATCH,
+                     run["decode_s_per_step"])
+           for arch, (run, budget) in waves.items()}
+    out[f"{TRAIN_ARCH} train"] = row(get_config(TRAIN_ARCH), "train", 256, 8,
+                                     train_row["trainer"]["ms_per_step"] * 1e-3)
+    emit({"phase": "roofline_shares", "card": train_row["card"], "shares": out})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4220,7 +4479,7 @@ def main() -> int:
     claims_k1, claims_paths, claims_rows, claims_busy = phase_paper_claims(torch)
     kbusy_launches += claims_busy
     release_card_memory(torch, "phase_train")
-    phase_train(torch, card)
+    train_row = phase_train(torch, card)
     for launches, paths in ((placed_k1, placed_paths), (fault_k1, fault_paths),
                             (strag_k1, strag_paths), (ck_k1, ck_paths),
                             (claims_k1, claims_paths)):
@@ -4228,16 +4487,32 @@ def main() -> int:
         k1_paths = {p: k1_paths.get(p, 0) + paths.get(p, 0) for p in {*k1_paths, *paths}}
     lu_rows += placed_rows + fault_rows + strag_rows + ck_rows + cal_rows + gate_rows
     lu_rows += claims_rows
+    serve_runs, waves = [], {}
+    for phase, arch, budget in ((phase_serve, SERVE_ARCH, WAVE_BUDGET),
+                                (phase_launch_serve, None, None),
+                                (phase_serve_pool, None, None),
+                                (phase_serve_load, None, None),
+                                (phase_serve_moe, MOE_ARCH, MOE_WAVE_BUDGET)):
+        release_card_memory(torch, phase.__name__)
+        runs = phase(torch)
+        serve_runs += runs.values()
+        if arch:
+            waves[arch] = (runs["wave"], budget)
+    for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
+        release_card_memory(torch, f"phase_serve_state {arch}")
+        runs = phase_serve_state(torch, arch, n)
+        serve_runs += runs.values()
+        waves[arch] = (runs["wave"], STATE_WAVE_BUDGET)
+    release_card_memory(torch, "phase_bench_trajectory")
+    traj_rows, traj_q8 = phase_bench_trajectory(torch)
+    lu_rows += traj_rows
+    kq8_launches += traj_q8
+    serve_runs.append(phase_kernels_bench(torch))
+    phase_dryrun_roofline(torch)
+    roofline_shares(torch, waves, train_row)
     k2_launches = sum(r["bmod_launches"] for r in lu_rows)
     k2_paths = {p: sum(r["bmod_path_launches"][p] for r in lu_rows)
                 for p in lu_rows[0]["bmod_path_launches"]}
-    serve_runs = []
-    for phase in (phase_serve, phase_serve_pool, phase_serve_load, phase_serve_moe):
-        release_card_memory(torch, phase.__name__)
-        serve_runs += phase(torch).values()
-    for arch, n in ((HYBRID_ARCH, HYBRID_PARAMS), (SSM_ARCH, SSM_PARAMS)):
-        release_card_memory(torch, f"phase_serve_state {arch}")
-        serve_runs += phase_serve_state(torch, arch, n).values()
 
     def served(kernel):
         """A kernel's launches over every serve run, and per path."""

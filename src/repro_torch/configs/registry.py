@@ -1,10 +1,12 @@
-"""Architecture registry: ``--arch <id>`` lookup, shape cells, smoke batches.
+"""Architecture registry: ``--arch <id>`` lookup, shape cells, input specs.
 
 The port's copy of the reference's registry.  The 40-cell assignment matrix
 is ARCHS × SHAPES; :func:`shape_cells` marks the documented skips
-(``long_500k`` for non-sub-quadratic archs).  The reference's
-``input_specs`` (abstract ``jax.ShapeDtypeStruct`` stand-ins for its dry-run
-driver) has no counterpart here.
+(``long_500k`` for non-sub-quadratic archs), so the dry run
+(``launch.dryrun``), the tests and the docs enumerate the same cells.
+:func:`input_specs` gives each cell's inputs as ``meta``-device tensors
+(shapes and dtypes, no storage), where the reference gives
+``jax.ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -63,6 +65,52 @@ def shape_cells(arch: str) -> List[Tuple[str, str, str]]:
         else:
             out.append((name, "run", ""))
     return out
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins: no allocation; the dry run's contract)
+# ---------------------------------------------------------------------------
+_META = torch.device("meta")
+
+
+def _i32(*shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, device=_META)
+
+
+def _emb(cfg: ModelConfig, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=getattr(torch, cfg.compute_dtype), device=_META)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Batch-dict ``meta`` tensors for one (arch × shape) cell.
+
+    train/prefill return the full batch dict; decode returns
+    {token, pos} — the cache is derived by the dry run from
+    ``Model.make_cache`` over the abstract parameters.
+    """
+    B, S = shape.batch, shape.seq
+    if shape.kind in ("train", "prefill"):
+        if cfg.is_encdec:
+            half = S // 2
+            d = {"enc_embeds": _emb(cfg, B, half, cfg.d_model),
+                 "tokens": _i32(B, half)}
+            if shape.kind == "train":
+                d["labels"] = _i32(B, half)
+            return d
+        if cfg.family == "vlm":
+            text = S - cfg.frontend_seq
+            d = {"embeds": _emb(cfg, B, cfg.frontend_seq, cfg.d_model),
+                 "tokens": _i32(B, text)}
+            if shape.kind == "train":
+                d["labels"] = _i32(B, text)
+            return d
+        d = {"tokens": _i32(B, S)}
+        if shape.kind == "train":
+            d["labels"] = _i32(B, S)
+        return d
+    if shape.kind == "decode":
+        return {"token": _i32(B, 1), "pos": _i32()}
+    raise ValueError(shape.kind)
 
 
 def smoke_batch(cfg: ModelConfig, generator: torch.Generator,

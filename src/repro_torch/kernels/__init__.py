@@ -26,3 +26,32 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
                 f"{kernel}: the hand-written kernel has no backward; a "
                 "gradient through it would be lost.  Train with "
                 "use_kernels=False")
+
+
+def launch_report() -> dict:
+    """Each kernel wrapper this process has imported: its launches and its
+    launches per path, by library name (``{"block_lu": {"launches": n,
+    "paths": {...}}, ...}``).  A bench run as a child process writes it
+    (``--launches PATH``) so that its parent can count the child's kernels."""
+    import sys
+    from ._build import SOURCES
+    out = {}
+    for name in SOURCES:
+        mod = sys.modules.get(f"{__name__}.{name}.{name}")
+        if mod is not None:
+            out[name] = {"launches": mod.launches.count,
+                         "paths": {p: c.count for p, c in
+                                   getattr(mod, "path_launches", {}).items()}}
+    return out
+
+
+def write_launch_report(path) -> None:
+    """:func:`launch_report` as JSON at ``path`` (nothing when ``path`` is
+    None)."""
+    if path is None:
+        return
+    import json
+    import os
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(launch_report(), f, indent=1, sort_keys=True)

@@ -166,6 +166,51 @@ def sass_count(name: str, opcode: str = "HGMMA") -> int:
     return sum(opcode in line for line in sass(lib_path(name)).splitlines())
 
 
+def kernel_name(demangled: str) -> str:
+    """``void <unnamed>::wg::k<(int)128>(CUtensorMap_st, ...)`` →
+    ``wg::k<128>``: namespaces and casts dropped, the parameters cut at the
+    first parenthesis outside the template arguments."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "",
+                  demangled)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def ptxas_by_kernel(log: str, nvcc_path: Optional[str] = None) -> Dict[str, Dict[str, int]]:
+    """``-Xptxas -v``'s registers, static shared memory and spill bytes
+    per kernel function, keyed by its demangled name (:func:`kernel_name`)
+    when ``cu++filt`` sits beside ``nvcc_path``."""
+    rows: Dict[str, Dict[str, int]] = {}
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            rows[name] = {}
+            continue
+        if name is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads")):
+            m = re.search(pat, ln)
+            if m:
+                rows[name][key] = int(m.group(1))
+    if nvcc_path and rows:
+        filt = os.path.join(os.path.dirname(nvcc_path), "cu++filt")
+        names = list(rows)
+        out = subprocess.run([filt, *names], capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            return {kernel_name(d): rows[n] for d, n in zip(out, names)}
+    return rows
+
+
 _SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
 _SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")

@@ -6,26 +6,34 @@ Runs the four BOTS workloads as speedup curves over device counts
   Figs 4–5  mandelbrot  (strip offload, result strips — scales with size)
   Figs 6–7  fib         (recursive unroll-then-offload — imbalance-limited)
   Figs 8–9  sparselu    (host-mediated wavefront — comm-bound, no speedup)
+  §6        comm modes  (host-funnel vs direct vs int8 — future work, done)
+  —         kernels     (resources per CTA + two timed kernels)
+  §Roofline roofline    (renders build/dryrun if present)
 
-then ``sparselu.verify("small")``, and applies the reference's claim checks
-with the reference's thresholds.  A speedup is the measured serial time
-over measured EXEC seconds plus modeled communication (``bots/common.py``).
+then ``sparselu.verify("small")``, the reference's ``comm_modes`` section
+(``comm_modes.modes`` at the reference's full sizes), ``kernels_bench``
+and the roofline table, and applies the reference's claim checks with the
+reference's thresholds.  A speedup is the measured serial time over
+measured EXEC seconds plus modeled communication (``bots/common.py``).
 
     python -m repro_torch.run                  # on the card
     python -m repro_torch.run --device cpu     # the plain kernels on the CPU
 
-writes ``build/bench/results.json`` (``--out``) in the reference's layout and
-exits 1 if a claim fails or the verification error exceeds 1e-3.  The
-reference's ``comm_modes``, ``kernels_bench`` and roofline sections are not
-part of this module.
+writes ``build/bench/results.json`` and ``build/bench/comm_modes.json``
+(``--out``) in the reference's layout, renders ``build/roofline_table.md``
+(``repro_torch.roofline``; ``--skip-roofline`` skips it, and it runs only
+when ``build/dryrun/`` holds records) and exits 1 if a claim fails or the
+verification error exceeds 1e-3.  ``--skip-comm`` skips the comm section.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from . import comm_modes, kernels_bench, roofline
 from ._device import DeviceLike
 from .bots import alignment, fib, mandelbrot, sparselu
 from .bots.common import Curve, save_results
@@ -126,6 +134,10 @@ def main(argv=None) -> int:
                     help="directory of results.json (default: build/bench)")
     ap.add_argument("--repeats", type=int, default=3,
                     help="runs per point; each point is their median")
+    ap.add_argument("--skip-comm", action="store_true",
+                    help="skip the comm_modes section")
+    ap.add_argument("--skip-roofline", action="store_true",
+                    help="skip the roofline table")
     ap.add_argument("--curve", action="append", type=_parse_curve,
                     metavar="WORKLOAD:SIZE[:D,...]",
                     help="run only these curves (repeatable) and check no "
@@ -137,6 +149,21 @@ def main(argv=None) -> int:
     path = os.path.join(args.out, "results.json")
     save_results(path, curves)
     print(f"wrote {path}", flush=True)
+
+    if not args.skip_comm:
+        cm = comm_modes.modes_section(device=args.device)
+        print(comm_modes.render(cm), flush=True)
+        print()
+        path = os.path.join(args.out, "comm_modes.json")
+        with open(path, "w") as f:
+            json.dump(cm, f, indent=1)
+        print(f"wrote {path}", flush=True)
+    kb = kernels_bench.run(device=args.device)
+    print(kernels_bench.render(kb), flush=True)
+    dryrun = os.path.join("build", "dryrun")
+    if not args.skip_roofline and os.path.isdir(dryrun):
+        print("\n(roofline table from dry-run records)", flush=True)
+        roofline.main(["--device", args.device, "--dryrun", dryrun])
 
     if args.curve:
         print("(--curve: the paper claims are not checked)")

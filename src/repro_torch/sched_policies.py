@@ -14,9 +14,18 @@ the same seeded inputs, the same asserts and the same row keys.
 
 Every function takes ``device`` (the card unless the caller asks for the
 CPU) and returns its rows.
+
+    python -m repro_torch.sched_policies --device cpu --json PATH
+
+writes ``{"benchmark": "sched_policies", "sections": {"sparselu": ...,
+"strips": ...}}``, the layout of ``BENCH_sched.json``.
 """
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import sys
 from typing import Dict, List
 
 import torch
@@ -112,6 +121,36 @@ def run_sparselu(K: int = 4, B: int = 64, n_dev: int = 4, *,
     return rows
 
 
+def spill_faults(rows: List[Dict], B: int = 64) -> List[str]:
+    """The capacity-capped row's spill accounting, which holds whatever the
+    timing (its evictions and refetches vary with when each nowait region's
+    release lands, in the reference too): something spilled and came back;
+    every refetch is one block sent on top of the uncapped HEFT run's bytes;
+    what spilling sent back is whole blocks, at most one per eviction; no
+    byte moved peer to peer.  (The capped run's results are asserted equal
+    to the uncapped runs' in :func:`run_sparselu`.)  One message per broken
+    rule; the trajectory gate adds them to its failures."""
+    block = B * B * 4
+    by = {r["policy"]: r for r in rows}
+    base, capped = by["heft (comm-bound)"], by[f"heft (comm-bound, cap={6 * block}B)"]
+    ev, re_ = capped["evictions"], capped["refetches"]
+    extra_from = capped["bytes_from"] - base["bytes_from"]
+    rules = {
+        "evictions > 0": ev > 0,
+        "0 < refetches <= evictions": 0 < re_ <= ev,
+        "bytes_to == uncapped bytes_to + refetches x block":
+            capped["bytes_to"] == base["bytes_to"] + re_ * block,
+        "bytes_from - uncapped bytes_from in whole blocks, <= evictions":
+            extra_from % block == 0 and 0 <= extra_from <= ev * block,
+        "bytes_peer == 0": capped["bytes_peer"] == 0,
+    }
+    seen = {k: capped[k] for k in ("evictions", "refetches", "bytes_to", "bytes_from",
+                                   "bytes_peer")}
+    return [f"sched: capped row: {rule} broken: {seen}, uncapped bytes_to "
+            f"{base['bytes_to']}, bytes_from {base['bytes_from']}"
+            for rule, ok in rules.items() if not ok]
+
+
 def run_strips(total: int = 4096, n_dev: int = 4, *,
                device: DeviceLike = "cuda") -> List[Dict]:
     """Policies on the dependency-free pattern: must not change anything."""
@@ -147,11 +186,60 @@ def run_strips(total: int = 4096, n_dev: int = 4, *,
     return rows
 
 
+def render_sparselu(rows: List[Dict]) -> str:
+    out = ["## sparselu wavefront: placement policies (peer-routed edges)",
+           f"{'policy':>28} {'tasks':>6} {'funnel_MB':>10} {'peer_MB':>8} "
+           f"{'total_MB':>9} {'saved':>6} {'devs':>5} {'makespan':>9}"]
+    for r in rows:
+        funnel = (r["bytes_to"] + r["bytes_from"]) / 1e6
+        out.append(f"{r['policy']:>28} {r['tasks']:>6} {funnel:>10.2f} "
+                   f"{r['bytes_peer'] / 1e6:>8.2f} {r['total_MB']:>9.2f} "
+                   f"{r['reduction_pct']:>5.1f}% {r['devs_used']:>5} "
+                   f"{r['makespan_overlap_s']:>9.4f}")
+    capped = rows[-1]
+    if "evictions" in capped:
+        out.append(f"  → capacity-capped run: {capped['evictions']} evictions"
+                   f", {capped['refetches']} refetches, bit-identical result")
+    return "\n".join(out)
+
+
+def render_strips(rows: List[Dict]) -> str:
+    out = ["## strips (no dependencies): policies must be byte-identical",
+           f"{'policy':>28} {'MB_to':>8} {'MB_from':>8} {'makespan':>9}"]
+    for r in rows:
+        out.append(f"{r['policy']:>28} {r['bytes_to'] / 1e6:>8.3f} "
+                   f"{r['bytes_from'] / 1e6:>8.3f} "
+                   f"{r['makespan_overlap_s']:>9.4f}")
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    """The CLI of ``benchmarks/sched_policies.py``: both sections, their
+    asserts, and ``--json`` in ``BENCH_sched.json``'s layout."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--json", metavar="PATH", default=None,
+                    help="also dump every section's rows to PATH "
+                         "(BENCH_sched.json's layout)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the virtual devices live (default: cuda)")
+    ap.add_argument("--launches", metavar="PATH", default=None,
+                    help="write this run's kernel launch counts to PATH")
+    args = ap.parse_args(argv)
+    sections = {"sparselu": run_sparselu(device=args.device),
+                "strips": run_strips(device=args.device)}
+    print(render_sparselu(sections["sparselu"]))
+    print(render_strips(sections["strips"]))
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump({"benchmark": "sched_policies", "sections": sections},
+                      f, indent=2, sort_keys=True)
+        print(f"wrote {args.json}")
+    from .kernels import write_launch_report
+    write_launch_report(args.launches)
+    return 0
+
+
 if __name__ == "__main__":
-    import argparse
-    import json
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    print(json.dumps({"sparselu": run_sparselu(device=args.device),
-                      "strips": run_strips(device=args.device)}, indent=1))
+    sys.exit(main())

@@ -1376,3 +1376,40 @@ def test_full_width_train_step_is_deterministic(cuda_device):
     assert all(torch.equal(a.view(-1).view(torch.int16), b.view(-1).view(torch.int16))
                if a.dtype == torch.bfloat16 else torch.equal(a, b)
                for a, b in zip(_tree.leaves(p1), _tree.leaves(p2)))
+
+
+def test_launch_serve_on_the_card_equals_the_engine(cuda_device):
+    """``repro_torch.launch.serve`` on mamba2-130m's smoke config on the
+    card (K5 takes its P = N = 16; the attention families' smoke head dims
+    are not the attention kernels'): its tokens equal a ``ServeEngine``
+    driven directly with the same weights and requests."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serve import ServeEngine
+    out = {}
+    assert tserve.main(["--arch", "mamba2-130m", "--requests", "5", "--max-new", "8"],
+                       out=out) == 0
+    got = {rid: r.tokens for rid, r in out["results"].items()}
+    eng = ServeEngine(out["model"], out["params"], out["serve_config"],
+                      frontend_seq=out["frontend_seq"], device=cuda_device)
+    assert got == {rid: r.tokens for rid, r in eng.serve(out["requests"]).items()}
+    assert all(len(t) == 8 for t in got.values())
+
+
+def test_dryrun_leaves_the_card_memory_unchanged(cuda_device, tmp_path):
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert dryrun.main(["--all", "--out", str(tmp_path)]) == 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert len(list(tmp_path.iterdir())) == 32
+
+
+def test_kernels_bench_rows_time_the_kernels_on_the_card(cuda_device):
+    from repro_torch import kernels_bench
+    rows = kernels_bench.timed_rows(device=cuda_device, reps=5)
+    name = torch.cuda.get_device_name(cuda_device)
+    for r in rows:
+        assert np.isfinite(r["ms"]) and r["ms"] > 0 and np.isfinite(r["plain_ms"])
+        assert r["card"] == name and r["path"] == "wgmma"
+    assert rows[0]["max_abs_err_vs_plain"] < 4e-2

@@ -146,6 +146,34 @@ def test_sass_loops_reads_backward_branches():
     assert _build.sass_loops(_SASS, "busy_loop_kernel") == []
 
 
+_PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12wg1kILi128EEEv14CUtensorMap_stPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_12wg1kILi128EEEv14CUtensorMap_stPf
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, 1024 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function 'bmod_kernel' for 'sm_90a'
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+"""
+
+
+def test_ptxas_by_kernel_reads_resources_and_demangles(tmp_path):
+    """``-Xptxas -v``'s registers, static shared memory and spills per entry
+    function, keyed by the mangled name, or by ``kernel_name`` of what
+    ``cu++filt`` beside ``nvcc`` prints."""
+    rows = {"registers": 168, "static_smem_bytes": 1024, "spill_store_bytes": 8,
+            "spill_load_bytes": 12}
+    assert _build.ptxas_by_kernel(_PTXAS) == {
+        "_ZN12_GLOBAL__N_12wg1kILi128EEEv14CUtensorMap_stPf": rows,
+        "bmod_kernel": {"registers": 40}}
+    filt = tmp_path / "cu++filt"
+    filt.write_text('#!/bin/sh\necho "void <unnamed>::wg::k<(int)128>(CUtensorMap_st, float*)"'
+                    '\necho "bmod_kernel"\n')
+    filt.chmod(0o755)
+    assert _build.ptxas_by_kernel(_PTXAS, str(tmp_path / "nvcc")) == {
+        "wg::k<128>": rows, "bmod_kernel": {"registers": 40}}
+    assert _build.kernel_name("void (anonymous namespace)::f<(bool)1>(int (*)[4])") == "f<1>"
+
+
 @pytest.mark.parametrize("max_iter", [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 299, 301])
 def test_mandelbrot_chunked_steps_ragged(max_iter):
     """max_iter of 0, 1, around the chunk and off 300; a width not a

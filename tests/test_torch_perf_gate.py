@@ -79,7 +79,8 @@ def test_true_makespan_reprices_the_recorded_traffic():
 
 def test_main_writes_the_report(tmp_path, capsys):
     out = tmp_path / "perf_gate_report.json"
-    assert tpg.main(["--device", "cpu", "--out", str(out)]) == 0
+    assert tpg.main(["--device", "cpu", "--skip-bench", "--no-profile",
+                     "--out", str(out)]) == 0
     with open(out) as f:
         report = json.load(f)
     assert report["failures"] == []

@@ -130,7 +130,8 @@ def test_run_all_bytes_equal_the_reference_live_curves(plan):
 
 
 def test_main_writes_results_in_the_reference_layout(tmp_path, capsys):
-    argv = ["--device", "cpu", "--out", str(tmp_path), "--repeats", "1"]
+    argv = ["--device", "cpu", "--out", str(tmp_path), "--repeats", "1",
+            "--skip-comm", "--skip-roofline"]
     for name, size, counts in PLAN:
         argv += ["--curve", f"{name}:{size}:{','.join(map(str, counts))}"]
     assert trun.main(argv) == 0

@@ -122,3 +122,22 @@ def test_failed_checks_name_the_section_and_check():
     sections = {"a": {"checks": {"x": True, "y": False}},
                 "b": {"checks": {"z": False}}}
     assert tsl.failed_checks(sections) == ["a.y", "b.z"]
+
+
+@pytest.mark.parametrize("name", ["continuous_vs_wave", "slo_vs_roundrobin"])
+def test_sections_pass_the_trajectory_gates_compare(name):
+    """Each section, as the CLI writes it, held against ``BENCH_serve.json``
+    by the perf gate's ``compare`` (token and request counts within the
+    band, ``tokens_identical`` true), the port's and the reference's
+    ``compare`` giving the same answer."""
+    import benchmarks.perf_gate as jpg
+    from repro_torch import perf_gate as tpg
+    with open(BENCH) as f:
+        committed = json.load(f)
+    base = {"benchmark": committed["benchmark"],
+            "sections": {name: committed["sections"][name]}}
+    sec = {k: v for k, v in _section(name).items() if k != "tokens"}
+    fresh = {"benchmark": "serve_load", "sections": {name: sec}}
+    assert tpg.compare("serve", base, fresh, 15.0) == []
+    assert jpg.compare("serve", base, fresh, 15.0) == []
+    assert tpg.n_gated("serve", base) == 4
