@@ -65,6 +65,14 @@ runs the plain blockwise path, as the reference's does; the ssm and hybrid
 families prefill unpadded in both modes, so with ``use_kernels`` every
 prefill runs the SSD-scan kernel in each Mamba2 layer and (hybrid) flash
 attention in each shared block, and every decode flash decode.
+
+Each continuous-mode step (not pool or wave mode) leaves a step record and
+a record per admitted request in ``serve/telemetry.py``'s process-wide
+log, and while a ``torch.profiler`` session records it opens spans where
+the work happens: ``serve.step`` around the step; ``serve.prefill``,
+``serve.insert`` and ``serve.wait`` in admission; ``serve.retire`` around
+the token read-back; ``serve.decode`` (with ``.replay``, ``.capture`` or
+``.eager`` inside), ``serve.sample`` and ``serve.wait`` in the decode.
 """
 from __future__ import annotations
 
@@ -80,7 +88,9 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..models.layers import dtype_of
 from ..models.model import Model
+from . import telemetry
 from .graph import CapturedStep
+from .telemetry import TELEMETRY, RequestRecord, StepRecord, span
 
 
 @dataclass(frozen=True)
@@ -248,18 +258,22 @@ class ServeEngine:
         probs = torch.softmax(last / self.cfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen).to(torch.int32)
 
-    def _decode(self, key: Tuple, fn) -> torch.Tensor:
+    def _decode(self, key: Tuple, fn, on: bool = False) -> torch.Tensor:
         """The logits of the decode step ``fn`` (no arguments: it reads the
         static inputs): eagerly, or by the captured graph of its signature
         ``key``, captured at the signature's first step (``fn`` is used only
-        then)."""
+        then).  ``on``: open the route's span."""
         self._decodes += 1
         if not self._captured:
-            return fn()
+            with span(on, "serve.decode.eager"):
+                return fn()
         step = self._graphs.get(key)
         if step is None:
             step = self._graphs[key] = CapturedStep(fn, self.device)
-        return step()
+            with span(on, "serve.decode.capture"):
+                return step()
+        with span(on, "serve.decode.replay"):
+            return step()
 
     @property
     def graph_stats(self) -> Dict[str, int]:
@@ -300,7 +314,14 @@ class ServeEngine:
             self._t0 = time.perf_counter()
         if self.runtime is not None:
             return self._step_pool()
-        return self._step_local()
+        # spans only while a profiler records; the step's record always
+        on = telemetry.recording()
+        rec = StepRecord(time.perf_counter(), on)
+        with span(on, "serve.step", lambda: f"step={self._steps}"):
+            completed = self._step_local(rec, on)
+        rec.t1 = time.perf_counter()
+        TELEMETRY.step_log.append(rec)
+        return completed
 
     def drain(self) -> Dict[int, Result]:
         out: Dict[int, Result] = {}
@@ -357,6 +378,7 @@ class ServeEngine:
         self._c_active = np.zeros(B, bool)
         self._c_req: List[Optional[Request]] = [None] * B
         self._c_res: List[Optional[Result]] = [None] * B
+        self._c_rec: List[Optional[RequestRecord]] = [None] * B
         self._slots_ready = True
 
     def _prefill_groups(self, admits: List[Tuple[Request, int]]
@@ -391,36 +413,46 @@ class ServeEngine:
                 groups.append(([(r, b)], Lb))
         return groups
 
-    def _admit_local(self, admits: List[Tuple[Request, int]]) -> None:
+    def _admit_local(self, admits: List[Tuple[Request, int]], rec: StepRecord,
+                     on: bool) -> None:
         t0 = time.perf_counter()
         B = self.cfg.batch
         for members, S in self._prefill_groups(admits):
-            # pad the group to a constant B rows; dummy rows keep one valid
-            # token (rows are independent and never inserted)
-            toks = np.zeros((B, S), np.int32)
-            pw = np.full(B, S - 1, np.int32)
-            for i, (r, _) in enumerate(members):
-                L = len(r.prompt)
-                toks[i, S - L:] = np.asarray(r.prompt, np.int32)
-                pw[i] = S - L
-            pad = torch.from_numpy(pw).to(self.device) if self._can_mask else None
-            logits, cache_k, pos1 = self.model.prefill(
-                self.params, self._batch(toks), cache_len=self.cfg.max_len,
-                pad_width=pad)
-            tok_k = self._sample(logits)
-            if self._c_cache is None:
-                self._c_cache = _tree_map(torch.zeros_like, cache_k)
-            slots, news = _leaves(self._c_cache), _leaves(cache_k)
-            for i, (r, b) in enumerate(members):
-                for slot, new, ax in zip(slots, news, self._c_axes):
-                    slot.select(ax, b).copy_(new.select(ax, i))
-                self._c_pos[b] = int(pos1)
-                self._c_pw[b] = pw[i]
-                self._c_tok[b] = tok_k[i]
-                self._c_req[b] = r
-                self._c_res[b] = Result(r.rid)
-                self._c_active[b] = True
-        _sync(self.device)
+            t_group = time.perf_counter()
+            with span(on, "serve.prefill", lambda: (
+                    f"rids={[r.rid for r, _ in members]} rows={B} padded_len={S}")):
+                # pad the group to a constant B rows; dummy rows keep one
+                # valid token (rows are independent and never inserted)
+                toks = np.zeros((B, S), np.int32)
+                pw = np.full(B, S - 1, np.int32)
+                for i, (r, _) in enumerate(members):
+                    L = len(r.prompt)
+                    toks[i, S - L:] = np.asarray(r.prompt, np.int32)
+                    pw[i] = S - L
+                pad = torch.from_numpy(pw).to(self.device) if self._can_mask else None
+                logits, cache_k, pos1 = self.model.prefill(
+                    self.params, self._batch(toks), cache_len=self.cfg.max_len,
+                    pad_width=pad)
+                tok_k = self._sample(logits)
+            rec.prefill_tokens += B * S
+            rec.prompt_tokens += sum(len(r.prompt) for r, _ in members)
+            with span(on, "serve.insert"):
+                if self._c_cache is None:
+                    self._c_cache = _tree_map(torch.zeros_like, cache_k)
+                slots, news = _leaves(self._c_cache), _leaves(cache_k)
+                for i, (r, b) in enumerate(members):
+                    for slot, new, ax in zip(slots, news, self._c_axes):
+                        slot.select(ax, b).copy_(new.select(ax, i))
+                    self._c_pos[b] = int(pos1)
+                    self._c_pw[b] = pw[i]
+                    self._c_tok[b] = tok_k[i]
+                    self._c_req[b] = r
+                    self._c_res[b] = Result(r.rid)
+                    self._c_rec[b] = RequestRecord(r.rid, len(r.prompt), S, t_group)
+                    TELEMETRY.request_log.append(self._c_rec[b])
+                    self._c_active[b] = True
+        with span(on, "serve.wait"):
+            _sync(self.device)
         dt = (time.perf_counter() - t0) / len(admits)
         for r, b in admits:
             self._c_res[b].prefill_s = dt
@@ -436,7 +468,7 @@ class ServeEngine:
             return r
         return None
 
-    def _step_local(self) -> List[Result]:
+    def _step_local(self, rec: StepRecord, on: bool) -> List[Result]:
         self._ensure_slots()
         completed: List[Result] = []
         self._shed_out = completed
@@ -450,21 +482,25 @@ class ServeEngine:
                 break
             admits.append((r, free.pop(0)))
         if admits:
-            self._admit_local(admits)
+            self._admit_local(admits, rec, on)
         # 2. consume pending tokens; retire finished sequences
         if self._c_active.any():
-            tok_host = self._c_tok.cpu().numpy()
-            for b in range(self.cfg.batch):
-                if not self._c_active[b]:
-                    continue
-                t = int(tok_host[b, 0])
-                r, res = self._c_req[b], self._c_res[b]
-                res.tokens.append(t)
-                if t == self.cfg.eos or len(res.tokens) >= r.max_new_tokens:
-                    completed.append(res)
-                    self._c_active[b] = False
-                    self._c_pw[b] = 0
-                    self._c_req[b] = self._c_res[b] = None
+            with span(on, "serve.retire"):
+                tok_host = self._c_tok.cpu().numpy()
+                t_read = time.perf_counter()
+                for b in range(self.cfg.batch):
+                    if not self._c_active[b]:
+                        continue
+                    t = int(tok_host[b, 0])
+                    r, res = self._c_req[b], self._c_res[b]
+                    res.tokens.append(t)
+                    if len(res.tokens) == 1:
+                        self._c_rec[b].t_first = t_read
+                    if t == self.cfg.eos or len(res.tokens) >= r.max_new_tokens:
+                        completed.append(res)
+                        self._c_active[b] = False
+                        self._c_pw[b] = 0
+                        self._c_req[b] = self._c_res[b] = self._c_rec[b] = None
         # 3. one batched decode over the remaining live slots
         act = self._c_active.copy()
         if act.any():
@@ -474,15 +510,25 @@ class ServeEngine:
             # the unmasked decode (bit-identical where the mask is the
             # identity)
             masked = self._can_mask and bool(self._c_pw.any())
-            if masked:
-                self._c_pwd.copy_(torch.from_numpy(self._c_pw))
-            logits = self._decode(("continuous", self.cfg.batch, masked), functools.partial(
-                _decode_logits, self.model, self.params, self._c_tok, self._c_cache,
-                self._c_posd, self._c_pwd if masked else None, self._prefix))
-            nxt = self._sample(logits)
-            live = torch.from_numpy(act).to(self.device)[:, None]
-            self._c_tok.copy_(torch.where(live, nxt, self._c_tok))
-            _sync(self.device)
+            with span(on, "serve.decode", lambda: (
+                    f"rids={[self._c_req[b].rid for b in np.flatnonzero(act)]} "
+                    f"masked={masked}")):
+                if masked:
+                    self._c_pwd.copy_(torch.from_numpy(self._c_pw))
+                logits = self._decode(("continuous", self.cfg.batch, masked), functools.partial(
+                    _decode_logits, self.model, self.params, self._c_tok, self._c_cache,
+                    self._c_posd, self._c_pwd if masked else None, self._prefix), on)
+                rec.t_launch = time.perf_counter()
+            rec.decode_rows, rec.masked = int(act.sum()), masked
+            with span(on, "serve.sample"):
+                nxt = self._sample(logits)
+            # the copy from pageable host memory blocks until the stream
+            # has run the decode: the host's wait for the card starts here
+            with span(on, "serve.wait"):
+                live = torch.from_numpy(act).to(self.device)[:, None]
+                self._c_tok.copy_(torch.where(live, nxt, self._c_tok))
+                _sync(self.device)
+            rec.t_synced = time.perf_counter()
             self._c_pos[act] += 1
             dt = (time.perf_counter() - t0) / int(act.sum())
             for b in np.flatnonzero(act):
