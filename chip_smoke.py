@@ -172,7 +172,10 @@ per step; it then serves its wave once more on the eager route
 captured wave's, replays one bf16 decode step captured against the same
 step run eagerly (the logits' difference reported), and holds the fp32
 model's greedy tokens on the captured route equal to the eager route's in
-both modes.
+both modes (the dense and MoE phases also in a ragged wave, the kernel
+route's one pad-masked path, which must capture a masked decode).  The
+dense, MoE and ``launch.serve`` phases hold K4 at one launch per layer and
+continuous prefill group (the kernel route prefills each length unpadded).
 
 Phase 2 also holds the grouped-matmul kernel against its plain version at
 the MoE path's shapes, beside ``torch.bmm`` as the library yardstick (also at
@@ -1128,21 +1131,53 @@ def _captured_vs_eager_logits(torch, model, params, tok, cache, pos: int) -> dic
     return row
 
 
-def _fp32_eager_vs_captured(torch, cfg32, params32, reqs_by_mode, max_len: int) -> dict:
+def _fp32_eager_vs_captured(torch, cfg32, params32, runs: dict, max_len: int) -> dict:
     """fp32 greedy tokens of the kernel route, eager against captured, per
-    mode (gated: equal)."""
+    run (``{label: (mode, requests)}``): whether they are equal, and how
+    many pad-masked decode signatures the captured engine captured (gated
+    in ``_check_captured``)."""
     from repro_torch.models import Model
     from repro_torch.serve import ServeConfig, ServeEngine
-    equal = {}
-    for mode, rs in reqs_by_mode.items():
+    out = {}
+    for label, (mode, rs) in runs.items():
         got = {}
         for eager in (True, False):
             eng = ServeEngine(Model(cfg32.replace(use_kernels=True)), params32,
                               ServeConfig(batch=SERVE_BATCH, max_len=max_len, mode=mode),
                               eager=eager)
             got[eager] = {rid: r.tokens for rid, r in eng.serve(rs).items()}
-        equal[mode] = got[True] == got[False]
-    return equal
+        out[label] = {"tokens_equal": got[True] == got[False],
+                      "masked_graphs": sum(1 for key in eng._graphs if key[-1])}
+    return out
+
+
+@contextlib.contextmanager
+def _prefill_groups_seen():
+    """Record the prefill groups every continuous engine forms while open,
+    as (rows, padded length)."""
+    from repro_torch.serve import ServeEngine
+    seen, split = [], ServeEngine._prefill_groups
+
+    def record(self, admits):
+        groups = split(self, admits)
+        seen.extend((len(members), S) for members, S in groups)
+        return groups
+    ServeEngine._prefill_groups = record
+    try:
+        yield seen
+    finally:
+        ServeEngine._prefill_groups = split
+
+
+def _check_k4_per_group(arch: str, runs: dict, layers: int) -> None:
+    """Every continuous prefill group of a kernel-route engine (unpadded)
+    launched K4 once per attention layer."""
+    for name, r in runs.items():
+        groups = r.get("prefill_groups")
+        if groups is not None and not (groups and r["flash_attention_launches"]
+                                       == layers * groups):
+            fail(f"{arch} {name}: K4 launched {r['flash_attention_launches']} times over "
+                 f"{groups} prefill groups, expected {layers} per group")
 
 
 def _ssd_inputs(torch, gen, b, S, H, P, G, N, dtype):
@@ -3379,7 +3414,8 @@ def phase_serve(torch):
                                                      mode=mode))
         _reset_counts(k4mod, k3mod)
         t0 = time.perf_counter()
-        res = eng.serve(rs)
+        with _prefill_groups_seen() as groups:
+            res = eng.serve(rs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k4n, k3n = k4mod.launches.count, k3mod.launches.count
@@ -3394,6 +3430,8 @@ def phase_serve(torch):
             "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
+        if mode == "continuous":
+            runs[mode]["prefill_groups"] = len(groups)
         _graph_stats(eng, runs[mode])
         if mode == "wave":
             wave_engine = eng
@@ -3428,7 +3466,9 @@ def phase_serve(torch):
     torch.cuda.empty_cache()
 
     # full width, 2 layers, fp32: kernel route tokens == plain route's (wave
-    # mode), and the captured route's == the eager route's (both modes)
+    # mode), and the captured route's == the eager route's (both modes, and
+    # a ragged wave, whose pad-masked prefill and masked decode are the
+    # kernel route's only pad-masked path)
     cfg2 = get_config(SERVE_ARCH).replace(n_layers=2, param_dtype="float32",
                                           compute_dtype="float32")
     params2 = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
@@ -3439,7 +3479,8 @@ def phase_serve(torch):
                           ServeConfig(batch=4, max_len=256, mode="wave"))
         fp32_tokens[use] = {rid: r.tokens for rid, r in eng.serve(small).items()}
     fp32_graph = _fp32_eager_vs_captured(torch, cfg2, params2, {
-        "wave": small, "continuous": _ragged(prompts, 128, 16)}, 256)
+        "wave": ("wave", small), "continuous": ("continuous", _ragged(prompts, 128, 16)),
+        "ragged_wave": ("wave", _ragged(prompts[:4], 128, 16))}, 256)
     del params2, eng
     torch.cuda.empty_cache()
 
@@ -3465,6 +3506,7 @@ def phase_serve(torch):
         fail(f"wave serve launched K4/K3 {w['flash_attention_launches']}/"
              f"{w['flash_decode_launches']} times, expected {L}/{L * (WAVE_BUDGET - 1)}")
     _check_k4_paths(SERVE_ARCH, runs)
+    _check_k4_per_group(SERVE_ARCH, runs, L)
     _check_k3_paths(SERVE_ARCH, runs)
     if not route["finite"] or max(route["prefill_rel_err"],
                                   route["decode_rel_err"]) > LOGITS_REL_TOL:
@@ -3726,7 +3768,8 @@ def phase_serve_load(torch):
 
 def _ragged(prompts, longest: int, budget: int) -> list:
     """Requests of ragged prompts (longest, longest - 16, ...; cycled) for
-    the fp32 continuous runs: pad-masked prefills and masked decodes."""
+    the fp32 runs: in continuous mode one unpadded prefill group per
+    length, in a wave a pad-masked prefill and masked decodes."""
     from repro_torch.serve import Request
     return [Request(i, p[:longest - 16 * (i % 4)], max_new_tokens=budget)
             for i, p in enumerate(prompts)]
@@ -3735,7 +3778,8 @@ def _ragged(prompts, longest: int, budget: int) -> list:
 def _check_captured(arch: str, runs: dict, eager_wave: dict, fp32_graph: dict) -> None:
     """Every decode of a serve phase after a signature's first replayed a
     graph; the eager wave launched what the captured wave did, per kernel
-    and per path; fp32 captured tokens equal the eager route's."""
+    and per path; fp32 captured tokens equal the eager route's, and a
+    pad-masked decode was captured in the ragged wave and in no other run."""
     for mode, r in runs.items():
         if (not r["graph_replays"]
                 or r["decode_steps"] != r["graphs_captured"] + r["graph_replays"]):
@@ -3744,8 +3788,12 @@ def _check_captured(arch: str, runs: dict, eager_wave: dict, fp32_graph: dict) -
     if not eager_wave["counts_equal_captured"]:
         fail(f"{arch}: the eager wave's launch counts differ from the captured wave's: "
              f"{eager_wave}")
-    if not all(fp32_graph.values()):
+    if not all(r["tokens_equal"] for r in fp32_graph.values()):
         fail(f"{arch}: fp32 captured-route tokens differ from the eager route's: {fp32_graph}")
+    if any(bool(r["masked_graphs"]) != (label == "ragged_wave")
+           for label, r in fp32_graph.items()):
+        fail(f"{arch}: fp32 runs captured masked decodes {fp32_graph}; expected them in the "
+             f"ragged wave only")
 
 
 def _check_k4_paths(arch: str, runs: dict) -> None:
@@ -3814,7 +3862,8 @@ def phase_serve_moe(torch):
                                                      mode=mode))
         _reset_counts(*mods)
         t0 = time.perf_counter()
-        res = eng.serve(rs)
+        with _prefill_groups_seen() as groups:
+            res = eng.serve(rs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k6n, k4n, k3n = (m.launches.count for m in mods)
@@ -3830,6 +3879,8 @@ def phase_serve_moe(torch):
             "flash_decode_paths": _path_counts(k3mod),
             "full_budgets": all(len(res[r.rid].tokens) == r.max_new_tokens
                                 and not res[r.rid].timed_out for r in rs)}
+        if mode == "continuous":
+            runs[mode]["prefill_groups"] = len(groups)
         _graph_stats(eng, runs[mode])
         if mode == "wave":
             wave_engine = eng
@@ -3923,7 +3974,8 @@ def phase_serve_moe(torch):
                           ServeConfig(batch=4, max_len=256, mode="wave"))
         fp32_tokens[use] = {rid: r.tokens for rid, r in eng.serve(small).items()}
     fp32_graph = _fp32_eager_vs_captured(torch, cfg2, params2, {
-        "wave": small, "continuous": _ragged(prompts, 128, 16)}, 256)
+        "wave": ("wave", small), "continuous": ("continuous", _ragged(prompts, 128, 16)),
+        "ragged_wave": ("wave", _ragged(prompts[:4], 128, 16))}, 256)
     del params2, eng
     torch.cuda.empty_cache()
 
@@ -3958,6 +4010,7 @@ def phase_serve_moe(torch):
     if got != expect:
         fail(f"wave MoE serve launched K6/K4/K3 {got} times, expected {expect}")
     _check_k4_paths(MOE_ARCH, runs)
+    _check_k4_per_group(MOE_ARCH, runs, L)
     _check_k3_paths(MOE_ARCH, runs)
     # prefill (C = 60 or more) on the tensor cores, decode (C = 1) small-C
     wpaths, cpaths = w["grouped_matmul_paths"], c["grouped_matmul_paths"]
@@ -4096,7 +4149,8 @@ def phase_serve_state(torch, arch: str, expect_params: int):
                               ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, mode=mode))
             got[use] = {rid: r.tokens for rid, r in eng.serve(rs16).items()}
         fp32_equal[mode] = got[True] == got[False]
-    fp32_graph = _fp32_eager_vs_captured(torch, cfg32, params32, reqs16, SERVE_MAX_LEN)
+    fp32_graph = _fp32_eager_vs_captured(
+        torch, cfg32, params32, {m: (m, rs) for m, rs in reqs16.items()}, SERVE_MAX_LEN)
     del params32, eng
     torch.cuda.empty_cache()
 
@@ -4196,8 +4250,9 @@ def phase_launch_serve(torch):
     beside nothing else on the card).
 
     Gated: the CLI's greedy tokens equal the direct engine's bit for bit;
-    every K4 launch ``wgmma`` (the CLI's continuous prefills are pad-masked,
-    so K4 launches in offload_serve's B = 1 prefills only) and every K3 of
+    every K4 launch ``wgmma`` (in the CLI's and the direct engine's
+    unpadded continuous prefills, one per layer and prefill group, and
+    offload_serve's B = 1 ones) and every K3 of
     the CLI and the direct engine ``split``, K3 in each run and K4 in
     offload_serve; every offload_serve request its budget (the example's own
     assert)."""
@@ -4213,21 +4268,24 @@ def phase_launch_serve(torch):
     _reset_counts(*mods)
     log = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
+    with contextlib.redirect_stdout(log), _prefill_groups_seen() as groups:
         rc = launch_serve.main(list(LAUNCH_SERVE_ARGS), out=out)
     torch.cuda.synchronize()
     runs["launch_serve"] = {"rc": rc, "wall_s": time.perf_counter() - t0,
                             "serve_wall_s": out["wall_s"], **out["graph_stats"],
-                            **_kernel_counts(mods)}
+                            "prefill_groups": len(groups), **_kernel_counts(mods)}
     cli = {rid: r.tokens for rid, r in out["results"].items()}
     eng = ServeEngine(out["model"], out["params"], out["serve_config"],
                       frontend_seq=out["frontend_seq"])
     _reset_counts(*mods)
     t0 = time.perf_counter()
-    direct = {rid: r.tokens for rid, r in eng.serve(out["requests"]).items()}
+    with _prefill_groups_seen() as groups:
+        direct = {rid: r.tokens for rid, r in eng.serve(out["requests"]).items()}
     torch.cuda.synchronize()
-    runs["direct_engine"] = {"wall_s": time.perf_counter() - t0, **_kernel_counts(mods)}
+    runs["direct_engine"] = {"wall_s": time.perf_counter() - t0,
+                             "prefill_groups": len(groups), **_kernel_counts(mods)}
     n_new = sum(len(t) for t in cli.values())
+    layers = out["model"].cfg.n_layers
     del eng, out
     release_card_memory(torch, "launch_serve: offload_serve")
 
@@ -4260,10 +4318,10 @@ def phase_launch_serve(torch):
         fail("launch_serve: an offload_serve request did not get its budget")
     served = {k: r for k, r in runs.items() if k != "offload_serve"}
     _check_k4_paths(f"{SERVE_ARCH} launch_serve", runs)
+    _check_k4_per_group(f"{SERVE_ARCH} launch_serve", served, layers)
     _check_k3_paths(f"{SERVE_ARCH} launch_serve", served)
-    # the CLI serves continuously: its prefills are pad-masked and take the
-    # plain attention (as the serve phase's continuous run), so K4 runs in
-    # offload_serve's unmasked B = 1 prefills
+    # K4 runs in every unpadded prefill: the CLI's and the direct engine's
+    # continuous admissions and offload_serve's B = 1 prefills
     for name, r in runs.items():
         if not r["flash_decode_launches"] or (name == "offload_serve"
                                               and not r["flash_attention_launches"]):

@@ -7,14 +7,20 @@ them):
 
 * **Continuous (default).**  Requests stream through an admission queue into
   a fixed pool of *slots*; each slot owns one row of a stacked KV/SSM
-  cache.  Each step's admissions prefill together in constant-``B``
-  batches — on attention families bucketed to a power of two with a
-  per-sequence pad mask (``Model.prefill(pad_width=...)``, bit-exact), on
-  the ssm and hybrid families, whose state scans cannot mask pads, in
-  exact-length groups; unused rows are dummies.  Each row is copied into
-  its free slot, and every engine step runs ONE batched decode over all
-  occupied slots with a per-slot position vector.  Sequences join and leave
-  at step boundaries.
+  cache.  How a step's admissions prefill depends on the model's route.
+  On the plain route (``use_kernels=False``) they prefill together in
+  constant-``B`` batches, unused rows dummies — on attention families
+  bucketed to a power of two with a per-sequence pad mask
+  (``Model.prefill(pad_width=...)``, bit-exact), on the ssm and hybrid
+  families, whose state scans cannot mask pads, in exact-length groups.
+  On the kernel route (``use_kernels``) they prefill unpadded: one group
+  per prompt length, holding only its real rows, so no slot carries pads.
+  An MoE layer's expert capacity counts the tokens of its prefill, so
+  there only real tokens compete for it, where the plain route's dummy and
+  pad tokens (and the reference's) compete too: past capacity the two
+  routes may drop different assignments.  Each row is copied into its free slot, and every engine step runs ONE
+  batched decode over all occupied slots with a per-slot position vector.
+  Sequences join and leave at step boundaries.
 * **Wave (baseline).**  Form a wave of ≤B requests, left-pad to a common
   length, prefill once, decode until every member finishes.  Ragged waves
   of attention families carry the per-sequence pad mask so pad slots are
@@ -33,8 +39,9 @@ them):
   transport (``propagate_resident``).  Deadline shedding and hedging
   (``stragglers=``) ride through ``run_graph``.
 
-The slot cache is made in the shape of the first B-row prefill's cache, and
-rows move along each leaf's batch axis as the model states it
+The slot cache is made in the dtypes and shapes of the first prefill's
+cache, with B rows, and rows move along each leaf's batch axis as the model
+states it
 (``Model.cache_batch_axes``): axis 1 for the [L, B, S, K, Dh] self-KV, the
 enc-dec cross-KV and the mamba2 states, axis 2 for the hybrid's [G, k, B,
 ...] conv and SSM states.
@@ -57,14 +64,15 @@ is copied.  Prefill runs eagerly.  A CPU engine decodes eagerly, and so does
 a card engine made with ``eager=True``; a capture that fails raises, and
 nothing falls back to the eager route by itself.
 
-With ``use_kernels`` on the card, an unpadded prefill (wave mode with equal
-prompt lengths) runs the flash-attention kernel on every layer and every
-decode in which no live slot carries pads runs the flash-decode kernel.
-Continuous-mode prefill of an attention family is always pad-masked, so it
-runs the plain blockwise path, as the reference's does; the ssm and hybrid
-families prefill unpadded in both modes, so with ``use_kernels`` every
-prefill runs the SSD-scan kernel in each Mamba2 layer and (hybrid) flash
-attention in each shared block, and every decode flash decode.
+With ``use_kernels`` on the card, an unpadded prefill (every continuous-mode
+admission, and wave mode with equal prompt lengths) runs the flash-attention
+kernel on every layer, and every decode in which no live slot carries pads
+(every continuous-mode decode) runs the flash-decode kernel.  A pad-masked
+prefill (a ragged wave, or continuous mode on the plain route) runs the
+plain blockwise path, as the reference's does; the ssm and hybrid families
+prefill unpadded in both modes, so with ``use_kernels`` every prefill runs
+the SSD-scan kernel in each Mamba2 layer and (hybrid) flash attention in
+each shared block, and every decode flash decode.
 
 Each continuous-mode step (not pool or wave mode) leaves a step record and
 a record per admitted request in ``serve/telemetry.py``'s process-wide
@@ -121,8 +129,9 @@ class ServeConfig:
     temperature: float = 0.0       # 0 = greedy
     seed: int = 0
     mode: str = "continuous"       # "continuous" | "wave" (baseline)
-    # continuous mode: bucket prefill lengths to the next power of two with
-    # a pad mask (bit-exact)
+    # continuous mode on the plain route: bucket prefill lengths to the
+    # next power of two with a pad mask (bit-exact); the kernel route
+    # prefills each length unpadded and refuses False
     bucket_prefill: bool = True
     # pool mode: every N steps, if the deepest device queue exceeds the
     # shallowest by >= 2 sequences, migrate the hottest sequence's cache
@@ -196,6 +205,9 @@ class ServeEngine:
         (``ensure_resident``, counted in ``bytes_to``)."""
         if cfg.mode not in ("continuous", "wave"):
             raise ValueError(f"unknown serve mode {cfg.mode!r}")
+        if model.cfg.use_kernels and not cfg.bucket_prefill:
+            raise ValueError("bucket_prefill=False has no effect on the kernel route, "
+                             "which prefills every length unpadded")
         self.device = resolve_device(device)
         where = {str(leaf.device) for leaf in _param_leaves(params)}
         if runtime is not None:
@@ -218,6 +230,9 @@ class ServeEngine:
         self._front_key = "enc_embeds" if mcfg.is_encdec else "embeds"
         self._prefix = frontend_seq if not mcfg.is_encdec else 0
         self._can_mask = mcfg.family not in ("ssm", "hybrid")
+        # the kernel route admits unpadded: a pad sends a prefill off flash
+        # attention and every later decode of its slot off flash decode
+        self._pad_mask = self._can_mask and not mcfg.use_kernels
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # captured decode graphs by signature, and wave mode's static
         # decode inputs by wave size
@@ -385,14 +400,15 @@ class ServeEngine:
                         ) -> List[Tuple[List[Tuple[Request, int]], int]]:
         """Partition this step's admissions into batchable prefill groups.
 
-        Attention families pad-mask, so any mix of lengths shares one
-        prefill at the group's (bucketed) max length — except members whose
-        token budget can't afford the padding, which start their own group.
-        SSM/hybrid families can't mask, so only equal-length prompts batch.
-        Returns [(members, padded_len)], on attention families with members
-        sorted longest-first.
+        On the plain route attention families pad-mask, so any mix of
+        lengths shares one prefill at the group's (bucketed) max length —
+        except members whose token budget can't afford the padding, which
+        start their own group.  SSM/hybrid families can't mask, and the
+        kernel route admits unpadded, so there only equal-length prompts
+        batch.  Returns [(members, padded_len)], pad-masked groups with
+        members sorted longest-first.
         """
-        if not self._can_mask:
+        if not self._pad_mask:
             by_len: Dict[int, List[Tuple[Request, int]]] = {}
             for r, b in admits:
                 by_len.setdefault(len(r.prompt), []).append((r, b))
@@ -419,26 +435,29 @@ class ServeEngine:
         B = self.cfg.batch
         for members, S in self._prefill_groups(admits):
             t_group = time.perf_counter()
+            # the plain route pads the group to a constant B rows; the
+            # kernel route prefills the members' rows only
+            rows = len(members) if self.model.cfg.use_kernels else B
             with span(on, "serve.prefill", lambda: (
-                    f"rids={[r.rid for r, _ in members]} rows={B} padded_len={S}")):
-                # pad the group to a constant B rows; dummy rows keep one
-                # valid token (rows are independent and never inserted)
-                toks = np.zeros((B, S), np.int32)
-                pw = np.full(B, S - 1, np.int32)
+                    f"rids={[r.rid for r, _ in members]} rows={rows} padded_len={S}")):
+                # dummy rows keep one valid token (rows are independent and
+                # never inserted)
+                toks = np.zeros((rows, S), np.int32)
+                pw = np.full(rows, S - 1, np.int32)
                 for i, (r, _) in enumerate(members):
                     L = len(r.prompt)
                     toks[i, S - L:] = np.asarray(r.prompt, np.int32)
                     pw[i] = S - L
-                pad = torch.from_numpy(pw).to(self.device) if self._can_mask else None
+                pad = torch.from_numpy(pw).to(self.device) if self._pad_mask else None
                 logits, cache_k, pos1 = self.model.prefill(
                     self.params, self._batch(toks), cache_len=self.cfg.max_len,
                     pad_width=pad)
                 tok_k = self._sample(logits)
-            rec.prefill_tokens += B * S
+            rec.prefill_tokens += rows * S
             rec.prompt_tokens += sum(len(r.prompt) for r, _ in members)
             with span(on, "serve.insert"):
                 if self._c_cache is None:
-                    self._c_cache = _tree_map(torch.zeros_like, cache_k)
+                    self._c_cache = self._slot_cache(cache_k)
                 slots, news = _leaves(self._c_cache), _leaves(cache_k)
                 for i, (r, b) in enumerate(members):
                     for slot, new, ax in zip(slots, news, self._c_axes):
@@ -456,6 +475,17 @@ class ServeEngine:
         dt = (time.perf_counter() - t0) / len(admits)
         for r, b in admits:
             self._c_res[b].prefill_s = dt
+
+    def _slot_cache(self, cache: Any) -> Any:
+        """Zeros in ``cache``'s dtypes and shapes, with ``batch`` rows along
+        each leaf's batch axis (a kernel-route prefill has fewer)."""
+        axes = iter(self._c_axes)
+
+        def slots(leaf: torch.Tensor) -> torch.Tensor:
+            shape = list(leaf.shape)
+            shape[next(axes)] = self.cfg.batch
+            return leaf.new_zeros(shape)
+        return _tree_map(slots, cache)
 
     def _shed_or_none(self, elapsed_ms: float) -> Optional[Request]:
         """Pop the next admissible request, shedding expired deadlines."""
@@ -499,7 +529,9 @@ class ServeEngine:
                     if t == self.cfg.eos or len(res.tokens) >= r.max_new_tokens:
                         completed.append(res)
                         self._c_active[b] = False
-                        self._c_pw[b] = 0
+                        # a free slot still decodes: at fill 0 flash decode
+                        # reads one row of it, not its last request's
+                        self._c_pos[b] = self._c_pw[b] = 0
                         self._c_req[b] = self._c_res[b] = self._c_rec[b] = None
         # 3. one batched decode over the remaining live slots
         act = self._c_active.copy()

@@ -16,7 +16,8 @@ in continuous local mode (pool and wave mode record nothing here):
 
 Step record fields: ``t0`` / ``t1`` the step's start and end;
 ``prefill_tokens`` (rows x padded length, summed over the step's prefill
-groups) and ``prompt_tokens`` (the real lengths summed); ``decode_rows``
+groups; on the kernel route the real rows at their own length) and
+``prompt_tokens`` (the real lengths summed); ``decode_rows``
 (live rows decoded, 0 for none), ``masked`` (the decode took the pad-masked
 signature), ``t_launch`` when the decode's launch call returned and
 ``t_synced`` when the step's wait for the card ended (NaN without a

@@ -273,14 +273,21 @@ def _attention_ref(q, k, v, window):
     return ref.reshape(B, K, r, Sq, d).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, d)
 
 
-@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 127, 129, 200, 512])
-@pytest.mark.parametrize("d", [64, 80, 128])
-@pytest.mark.parametrize("window", [0, 48, 128])
-@pytest.mark.parametrize("r", [1, 3])
+# the edges of K4's tiles at every head dim, window and group, then the
+# unpadded prefill lengths of minitron-4b.chat's prompts (d = 128, 24 heads
+# over 8): a prime near the median and the clip
+WGMMA_CASES = [(Sq, d, window, r) for r in (1, 3) for window in (0, 48, 128)
+               for d in (64, 80, 128) for Sq in (1, 63, 64, 65, 127, 129, 200, 512)] + [
+    (1021, 128, 0, 3), (2048, 128, 0, 3)]
+
+
+@pytest.mark.parametrize("Sq,d,window,r", WGMMA_CASES,
+                         ids=[f"{r}-{w}-{d}-{Sq}" for Sq, d, w, r in WGMMA_CASES])
 def test_flash_attention_wgmma_matches_plain(cuda_device, Sq, d, window, r):
     """K4's tensor-core path (bf16) over the edges of its tiles: query
     lengths around the 64-row warpgroup and the 128-row CTA, windows shorter
-    and longer than a 64-key stage, GQA groups of 1 and 3."""
+    and longer than a 64-key stage, GQA groups of 1 and 3; and at the
+    lengths a served chat prompt prefills unpadded."""
     rng = np.random.default_rng(Sq * 7 + d + window + r)
     B, K = 2, 2
     q = _rand(rng, (B, Sq, K * r, d), cuda_device, torch.bfloat16)
@@ -469,6 +476,39 @@ def test_two_layer_serve_launches_both_kernels(cuda_device):
         assert launched == ((2, 2 * 7) if use else (0, 0))
     assert tokens[True] == tokens[False]
     assert all(len(t) == 8 for t in tokens[True].values())
+
+
+def test_continuous_kernel_route_prefills_on_wgmma_and_decodes_unmasked(cuda_device):
+    """A 2-layer bf16 model (head dim 128, r = 3) served continuously with
+    ragged prompts: each prefill group (one per length) runs K4 on wgmma in
+    both layers, no decode signature is pad-masked, and the captured
+    route's tokens equal the eager route's."""
+    cfg = get_smoke_config("minitron-4b").replace(
+        n_heads=6, n_kv=2, d_head=128, param_dtype="bfloat16",
+        compute_dtype="bfloat16", use_kernels=True)
+    rng = np.random.default_rng(3)
+    lens = (16, 13, 21, 13, 9)
+    reqs = [Request(i, rng.integers(1, cfg.vocab, L).tolist(), max_new_tokens=6)
+            for i, L in enumerate(lens)]
+    params = Model(cfg).init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = {}
+    for eager in (True, False):
+        eng = ServeEngine(Model(cfg), params, ServeConfig(batch=3, max_len=48),
+                          eager=eager)
+        groups = []
+        split = eng._prefill_groups
+        eng._prefill_groups = lambda admits: groups.extend(split(admits)) or split(admits)
+        before = k4.path_launches["wgmma"].count, k4.launches.count
+        tokens[eager] = {rid: r.tokens for rid, r in eng.serve(reqs).items()}
+        torch.cuda.synchronize()
+        assert (k4.path_launches["wgmma"].count - before[0],
+                k4.launches.count - before[1]) == (2 * len(groups),) * 2
+        assert len(groups) == len(lens)
+        assert all(S == len(r.prompt) for m, S in groups for r, _ in m)
+        if not eager:
+            assert eng._graphs and not any(key[-1] for key in eng._graphs)
+    assert tokens[True] == tokens[False]
+    assert all(len(t) == 6 for t in tokens[True].values())
 
 
 @pytest.mark.parametrize("E,C,D,F", [(64, 240, 2048, 1408), (64, 1, 2048, 1408),

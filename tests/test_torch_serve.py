@@ -98,6 +98,47 @@ def test_kernel_route_serves_the_same_tokens_on_cpu(mode):
             assert kernel == _reference("minitron-4b", mode)
 
 
+@pytest.mark.parametrize("arch", ["minitron-4b", "zamba2-2.7b", "kimi-k2-1t-a32b"])
+def test_kernel_route_slot_cache_outgrows_a_one_row_prefill(arch):
+    """The kernel route's first admission prefills one row; the slot cache
+    made from it has the plain route's leaves, dtypes and shapes, with
+    ``batch`` rows on each leaf's batch axis, and the requests admitted
+    later into the other slot serve the plain route's tokens and the
+    reference's.  kimi's smoke MoE overflows expert capacity in prefill on
+    both routes, which count different tokens against it (the kernel route
+    no dummy or pad tokens), and still serves the same tokens."""
+    from repro_torch.serve.engine import _leaves
+    _, _, tm, tp = _pair(arch)
+    reqs = [Request(i, p, max_new_tokens=n) for i, p, n in _requests(tm.cfg.vocab)]
+    engines = {use: ServeEngine(Model(tm.cfg.replace(use_kernels=use)), tp,
+                                ServeConfig(batch=2, max_len=48), device="cpu")
+               for use in (True, False)}
+    for eng in engines.values():
+        eng.submit(reqs[0])
+        assert eng.step() == []
+    kernel, plain = (_leaves(engines[use]._c_cache) for use in (True, False))
+    axes = _leaves(tm.cache_batch_axes())
+    assert [(t.shape, t.dtype) for t in kernel] == [(t.shape, t.dtype) for t in plain]
+    assert all(t.shape[ax] == 2 for t, ax in zip(kernel, axes))
+    eng = engines[True]
+    eng.submit(*reqs[1:])
+    got = _tokens(eng.drain())
+    assert got == _tokens(_port(arch, "continuous", reqs)) == _reference(arch, "continuous")
+    assert all(len(got[i]) == 4 + 2 * i for i in got)
+
+
+def test_kernel_route_refuses_bucket_prefill_off():
+    """``bucket_prefill`` chooses the plain route's padding; the kernel
+    route prefills unpadded, so an engine on it refuses ``False``, and the
+    plain route takes it."""
+    _, _, tm, tp = _pair("minitron-4b")
+    with pytest.raises(ValueError, match="bucket_prefill"):
+        ServeEngine(Model(tm.cfg.replace(use_kernels=True)), tp,
+                    ServeConfig(batch=2, max_len=48, bucket_prefill=False), device="cpu")
+    ServeEngine(Model(tm.cfg), tp, ServeConfig(batch=2, max_len=48, bucket_prefill=False),
+                device="cpu")
+
+
 @pytest.mark.parametrize("mode", ["continuous", "wave"])
 def test_expired_deadline_is_shed(mode):
     """``deadline_ms=0`` is past on arrival: shed with no tokens; the other

@@ -191,6 +191,49 @@ def test_the_gate_is_read_once_a_step(engine, monkeypatch):
     assert {n for n, _ in rec.calls} == SPANS
 
 
+def _kernel_route_engine(arch: str) -> ServeEngine:
+    model = Model(get_smoke_config(arch).replace(
+        param_dtype="float32", compute_dtype="float32", use_kernels=True))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    return ServeEngine(model, params, ServeConfig(batch=SLOTS, max_len=MAX_LEN),
+                       device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "zamba2-2.7b"])
+def test_kernel_route_prefills_each_length_unpadded(arch, monkeypatch):
+    """With ``use_kernels`` (their plain versions on the CPU), ragged
+    prompts admitted in one step prefill as one group per length, of their
+    own rows only: no token of padding, no pad-masked decode and no masked
+    decode signature; a retired slot decodes at fill 0."""
+    TELEMETRY.clear()
+    eng = _kernel_route_engine(arch)
+    rec = _Recorder()
+    monkeypatch.setattr(telemetry, "record_function", rec)
+    monkeypatch.setattr(telemetry, "recording", lambda: True)
+    keys = []
+    decode = eng._decode
+    monkeypatch.setattr(eng, "_decode", lambda key, fn, on=False: keys.append(key) or
+                        decode(key, fn, on))
+    lens = (5, 9, 5, 12)
+    eng.serve([Request(rid, _prompt(rid, L), max_new_tokens=3 + rid)
+               for rid, L in enumerate(lens)])
+    assert [a for n, a in rec.calls if n == "serve.prefill"] == [
+        "rids=[0, 2] rows=2 padded_len=5", "rids=[1] rows=1 padded_len=9",
+        "rids=[3] rows=1 padded_len=12"]
+    steps = list(TELEMETRY.step_log)
+    admitting = [s for s in steps if s.prefill_tokens]
+    assert len(admitting) == 1
+    assert admitting[0].prefill_tokens == admitting[0].prompt_tokens == sum(lens)
+    assert {r.rid: (r.prompt_len, r.padded_len) for r in TELEMETRY.request_log} == {
+        rid: (L, L) for rid, L in enumerate(lens)}
+    decoded = [s for s in steps if s.decode_rows]
+    assert len(decoded) == len(keys) == eng.graph_stats["decodes"] == 5
+    assert not any(s.masked for s in decoded)
+    assert keys == [("continuous", SLOTS, False)] * 5
+    assert all(a.endswith("masked=False") for n, a in rec.calls if n == "serve.decode")
+    assert not eng._c_active.any() and not eng._c_pos.any() and not eng._c_pw.any()
+
+
 def test_wave_mode_records_nothing(model_params):
     TELEMETRY.clear()
     model, params = model_params
