@@ -60,14 +60,15 @@ def _sync(device: torch.device) -> None:
 
 
 class Setup:
-    """The cell's configuration, traffic and limits, the weights made from
-    ``seed`` on ``device``, and a warmed engine."""
+    """The cell's configuration, traffic, limits and plain reference, the
+    weights made from ``seed`` on ``device``, and a warmed engine."""
 
     def __init__(self, cell: spec.Cell, seed: int, device: torch.device) -> None:
         from repro_torch.models import Model
         self.conf = spec.read_json(cell.config_file)
         self.traffic = spec.read_json(cell.traffic_file)
         self.limits = spec.read_json(cell.limits_file)
+        self.reference = spec.reference_logits(cell)
         self.cfg = spec.model_config(self.conf)
         self.model = Model(self.cfg)
         self.weights = Weights(self.model.init_abstract(), self.conf["init"], seed, device)
@@ -79,8 +80,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.d
         t_start: float, bench_dir=None) -> Dict[str, Any]:
     """The result line's object."""
     su = Setup(cell, seed, device)
-    conf, traffic, limits, cfg, weights, engine = (su.conf, su.traffic, su.limits, su.cfg,
-                                                   su.weights, su.engine)
+    conf, traffic, limits, cfg, weights, engine, ref_logits = (
+        su.conf, su.traffic, su.limits, su.cfg, su.weights, su.engine, su.reference)
     reqs = make_requests(traffic, seconds, seed, cfg.vocab)
     _sync(device)
     if device.type == "cuda":
@@ -112,7 +113,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.d
         torch.cuda.empty_cache()
     prompts = [r.prompt for r in reqs]
     picked = check.sample(tl.served, seed, int(limits["sample_tokens"]))
-    got = check.widest(weights.params, conf, picked, prompts)
+    got = check.widest(weights.params, conf, picked, prompts, ref_logits)
     attempted = len(tl.served)
     failed = attempted - len(tl.finished())
     limit = float(limits["logit_gap"]["limit"])

@@ -3,7 +3,9 @@
 Once the window has closed and the engine is gone, a sample of the
 finished requests, drawn from the seed (the longest request always in it,
 then others in a seeded order until ``sample_tokens`` served tokens), goes
-through the plain reference once: prompt and served tokens, teacher-forced.
+through the plain reference once (the configuration's own
+``references/<config>.py``, or :func:`reference.logits`; see
+:func:`pb.spec.reference_logits`): prompt and served tokens, teacher-forced.
 At each served position the number compared is the gap by which the served
 token's logit lies below the reference's best logit there; the run's number
 is the widest gap.  A greedy engine that computes the model right serves
@@ -16,7 +18,7 @@ best, and its number is that token's gap in the float32 reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -49,31 +51,35 @@ def _sequence(prompt: np.ndarray, served: List[int], device):
     return torch.from_numpy(seq).to(device), rows
 
 
+Logits = Callable[..., torch.Tensor]
+
+
 def gaps(params: Any, conf: Dict[str, Any], prompt: np.ndarray, served: List[int],
-         control: bool = False) -> Dict[str, float]:
-    """The widest gap of ``served`` in the float32 reference; with
-    ``control``, also that of the float8 reference's own best tokens."""
+         logits: Logits, control: bool = False) -> Dict[str, float]:
+    """The widest gap of ``served`` in the float32 reference ``logits``;
+    with ``control``, also that of the float8 reference's own best tokens."""
     device = params["final_norm"].device
     seq, rows = _sequence(prompt, served, device)
-    with reference.exact_float32():
-        ref = reference.logits(params, conf, seq, rows)
+    with reference.exact_float32(), torch.no_grad():
+        ref = logits(params, conf, seq, rows, reference.FP32)
         best = ref.max(-1).values
         tok = torch.as_tensor(served, device=device).long()
         out = {"gap": float((best - ref.gather(1, tok[:, None])[:, 0]).max())}
         if control:
-            low = reference.logits(params, conf, seq, rows, reference.FP8())
+            low = logits(params, conf, seq, rows, reference.FP8())
             pick = low.argmax(-1)
             out["control_gap"] = float((best - ref.gather(1, pick[:, None])[:, 0]).max())
     return out
 
 
 def widest(params: Any, conf: Dict[str, Any], picked: Sequence[Served],
-           prompts: Sequence[np.ndarray], control: bool = False) -> Dict[str, float]:
+           prompts: Sequence[np.ndarray], logits: Logits,
+           control: bool = False) -> Dict[str, float]:
     out = {"gap": 0.0, "tokens": 0, "requests": len(picked)}
     if control:
         out["control_gap"] = 0.0
     for s in picked:
-        g = gaps(params, conf, prompts[s.index], s.tokens, control)
+        g = gaps(params, conf, prompts[s.index], s.tokens, logits, control)
         out["tokens"] += len(s.tokens)
         for k in ("gap", "control_gap"):
             if k in g:

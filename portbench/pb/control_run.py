@@ -18,7 +18,8 @@ def readings(su, seeds: List[int], seconds: float) -> Iterator[Dict]:
         prompts = [r.prompt for r in reqs]
         picked = check.sample(tl.served, seed, int(su.limits["sample_tokens"]))
         t0 = time.perf_counter()
-        got = check.widest(su.weights.params, su.conf, picked, prompts, control=True)
+        got = check.widest(su.weights.params, su.conf, picked, prompts, su.reference,
+                           control=True)
         yield {"seed": seed, "gap": got["gap"], "control_gap": got["control_gap"],
                "tokens": got["tokens"], "requests": got["requests"],
                "unfinished": len(tl.served) - len(tl.finished()), **tl.summary(),

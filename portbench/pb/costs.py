@@ -4,12 +4,13 @@ or a kernel call needs.
 A frozen copy of the port's analytic step model
 (``launch/analytic_cost.py``: ``forward_flops`` and ``port_step_cost``'s
 decode, formula for formula, on the attributes of a ``ModelConfig``), for
-the family the cells run: dense, with global attention; a cell of another
-family adds its own counts.  Later changes to the program do not move
-these numbers; the tests hold them equal to the program's at a few shapes
-as of the day they were frozen.  Conventions: matmul FLOPs only (2·M·N·K), causal attention
-counts the attended half; bytes count each input read once and each output
-written once.
+the family the cells run: dense, with global attention.  Another family's
+counts go in a new module under ``pb/``, which that cell's own new readers
+import; this one is not edited for them.  Later changes to the program do
+not move these numbers; the tests hold them equal to the program's at a
+few shapes as of the day they were frozen.  Conventions: matmul FLOPs only
+(2·M·N·K), causal attention counts the attended half; bytes count each
+input read once and each output written once.
 """
 from __future__ import annotations
 

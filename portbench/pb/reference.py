@@ -135,9 +135,14 @@ def _logits(params: Params, conf, x: torch.Tensor, prec: Precision) -> torch.Ten
     return prec.a(x) @ (_fp8(table, -1) if isinstance(prec, FP8) else table.float()).T
 
 
-def dense_logits(params: Params, conf, tokens: torch.Tensor, rows: torch.Tensor,
-                 prec: Precision = FP32) -> torch.Tensor:
-    """Logits [len(rows), V] at positions ``rows`` of the sequence ``tokens``."""
+def logits(params: Params, conf, tokens: torch.Tensor, rows: torch.Tensor,
+           prec: Precision = FP32) -> torch.Tensor:
+    """Logits [len(rows), V] at positions ``rows`` of the sequence ``tokens``:
+    the dense family's reference, which a configuration without a
+    ``references/<name>.py`` of its own takes."""
+    if conf["family"] != "dense":
+        raise ValueError(f"no plain reference for family {conf['family']!r}: "
+                         f"add references/{conf['name']}.py")
     eps = conf["rms_eps"]
     x = _embed(params, conf, tokens)
     for i in range(conf["n_layers"]):
@@ -145,18 +150,6 @@ def dense_logits(params: Params, conf, tokens: torch.Tensor, rows: torch.Tensor,
         x = x + attention(lp["attn"], rms_norm(x, lp["norm1"], eps), conf, prec)
         x = x + mlp(lp["mlp"], rms_norm(x, lp["norm2"], eps), conf["act"], prec)
     return _logits(params, conf, x[rows], prec)
-
-
-FAMILIES = {"dense": dense_logits}
-
-
-def logits(params: Params, conf, tokens: torch.Tensor, rows: torch.Tensor,
-           prec: Precision = FP32) -> torch.Tensor:
-    fn = FAMILIES.get(conf["family"])
-    if fn is None:
-        raise ValueError(f"no plain reference for family {conf['family']!r}")
-    with torch.no_grad():
-        return fn(params, conf, tokens, rows, prec)
 
 
 class exact_float32:

@@ -17,19 +17,27 @@ line of standard output is one JSON object: ``correct``, ``attempted``,
 number the correctness check compared, beside its limit, which also end
 standard error.  Exits non-zero, printing no result, without a CUDA card,
 with fewer cards than the cell asks for, without the program, or if JAX or
-the JAX package was loaded.  Caches go under ``build/`` in the checkout.
+the JAX package was loaded.  Caches, Python's bytecode among them, go under
+``build/`` in the checkout.
 """
 import time
 
 T_START = time.perf_counter()
 
-import argparse  # noqa: E402
-import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# Python's own compile cache, at a fixed place in the checkout: the first run
+# compiles torch's and the program's modules to bytecode, later runs load it
+# (an environment may set PYTHONDONTWRITEBYTECODE; without the cache every
+# run's set-up recompiles torch)
+sys.dont_write_bytecode = False
+sys.pycache_prefix = str(ROOT / "build" / "pycache")
+
+import argparse  # noqa: E402
+import json  # noqa: E402
 
 
 def main(argv=None) -> int:

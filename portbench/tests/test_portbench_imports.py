@@ -1,11 +1,12 @@
 """Nothing the benchmark runs loads JAX or the JAX package, compared by
-whole top-level names; the plain reference loads nothing of the program."""
+whole top-level names; the plain references, the harness's and each
+configuration's own, load nothing of the program."""
 from __future__ import annotations
 
 import subprocess
 import sys
 
-from conftest import BENCH, ROOT
+from conftest import BENCH, MOE_REFERENCE, ROOT, write_reference
 from pb import imports
 
 
@@ -40,8 +41,24 @@ def test_the_reference_loads_nothing_of_the_program():
     assert "repro_torch" not in names and not set(names) & imports.FORBIDDEN
 
 
+def test_each_configurations_reference_loads_nothing_of_the_program(tmp_path):
+    """Every ``references/*.py``, and a throwaway one, loaded by path as a
+    run loads it."""
+    paths = sorted((BENCH / "references").glob("*.py"))
+    paths.append(write_reference(tmp_path / "tinybench", "tiny-moe", MOE_REFERENCE))
+    for path in paths:
+        names = eval(_loaded(
+            "import importlib.util\n"
+            f"s = importlib.util.spec_from_file_location('ref', {str(path)!r})\n"
+            "m = importlib.util.module_from_spec(s); s.loader.exec_module(m)\n"
+            "assert callable(m.logits)"))
+        assert "repro_torch" not in names and not set(names) & imports.FORBIDDEN, path
+        assert "repro_torch" not in path.read_text(), path
+
+
 def test_no_harness_source_imports_jax_or_the_program_from_the_reference():
     for path in list((BENCH / "pb").glob("*.py")) + list((BENCH / "metrics").glob("*.py")) \
+            + list((BENCH / "references").glob("*.py")) \
             + [BENCH / "run.py", BENCH / "sweep.py", BENCH / "control.py"]:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import repro\n", "from repro ", "from repro.",

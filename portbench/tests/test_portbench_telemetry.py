@@ -131,6 +131,27 @@ def test_host_time_leaves_out_admissions_and_traced_steps(monkeypatch):
     assert _read("prefill_pad_pct", tl) == pytest.approx(100.0 * (1 - 1 / 16))
 
 
+def test_ttft_leaves_out_requests_served_once_a_profiler_recorded(monkeypatch):
+    """``ttft_p50_ms.chat`` by hand: due time to the end of the admitting
+    step, over the requests whose first token came before the first step
+    a profiler recorded; in an untraced run, over every request."""
+    from pb.timeline import Served, Timeline
+    from repro_torch.serve import telemetry
+    log = telemetry.ServeTelemetry()
+    monkeypatch.setattr(telemetry, "TELEMETRY", log)
+    traced = telemetry.StepRecord(6.0, True)
+    traced.t1 = 6.05
+    log.step_log.append(traced)
+    ends = [1.0, 1.1, 2.0, 2.1, 6.05, 8.0, 8.2]
+    served = [Served(0, 0.95, 4, 2, 1, [1, 2]), Served(1, 1.9, 4, 2, 3, [1, 2]),
+              Served(2, 7.6, 4, 2, 6, [1, 2])]
+    ctx = SimpleNamespace(tl=Timeline(ends, served, (0.0, 10.0)), trace=object())
+    read = spec.metric_reader("ttft_p50_ms.chat")
+    assert read(ctx) == pytest.approx(75.0)
+    traced.profiled = False
+    assert read(ctx) == pytest.approx(100.0)
+
+
 @pytest.mark.parametrize("name", READERS)
 def test_none_with_the_fake_engine(fake, name):  # noqa: F811
     from repro_torch.serve.telemetry import TELEMETRY
