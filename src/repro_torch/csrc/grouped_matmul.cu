@@ -52,6 +52,16 @@
 // 3. CUDA cores (fp32; or rows that do not start on 16 bytes, such as a
 //    ragged D or F): the first, simple kernel, described next.
 //
+// Per-expert counts (optional, int32 [E] on the device; null: every row).
+// A dropless MoE dispatches into C = T rows an expert, of which expert e
+// fills counts[e] (6 x T assignments over 64 experts fill about a tenth).
+// Every path then treats counts[e] as expert e's C: a CTA whose row tile
+// starts at or past it exits before it loads anything (an empty expert
+// reads no weight), the wgmma path loads and computes only the 64-row
+// boxes that hold a counted row, the small-C path stages and computes the
+// counted rows only, and no row at or past the count is stored.  The count
+// is read on the device, so a captured step replays with new counts.
+//
 // CUDA-core design: one CTA of 256 threads per (64-column F tile, 64-row C tile,
 // expert).  It walks D in 64-wide steps; x's [64 rows x 64] tile and w's
 // [64 x 64 columns] tile are staged in shared memory as fp32.  The next step's
@@ -171,7 +181,8 @@ struct TileLoader<T, ROWS, COLS, false> {
 template <typename T, bool VEC16>
 __global__ void __launch_bounds__(THREADS, 2)
 grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      T* __restrict__ out, int C, int D, int F) {
+                      T* __restrict__ out, int C, int D, int F,
+                      const int* __restrict__ counts) {
   __shared__ __align__(16) float xs[BM * XLD];
   __shared__ __align__(16) float ws[BK * WLD];
 
@@ -179,7 +190,9 @@ grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tx = tid % 16, ty = tid / 16;
   const int col0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
   const int e = blockIdx.z;
-  const int nr = min(BM, C - row0), nc = min(BN, F - col0);
+  const int rows_e = counts ? min(C, __ldg(counts + e)) : C;
+  if (row0 >= rows_e) return;   // the whole CTA: no counted row in its tile
+  const int nr = min(BM, rows_e - row0), nc = min(BN, F - col0);
   // a thread whose first row lies past C has no row to compute
   const bool active = 4 * ty < nr;
 
@@ -247,10 +260,11 @@ grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T, bool VEC16>
 int launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
-           void* stream) {
+           const int* counts, void* stream) {
   const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
   grouped_matmul_kernel<T, VEC16><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), C, D, F);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), C, D, F,
+      counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,14 +295,16 @@ constexpr size_t SMEM_BYTES = sizeof(Smem) + 1024;
 __global__ void __launch_bounds__(THREADS, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap wmap, bf16* __restrict__ out, int C,
-                 int D, int F) {
+                 int D, int F, const int* __restrict__ counts) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int rows_e = counts ? min(C, __ldg(counts + e)) : C;
+  if (m0 >= rows_e) return;       // every thread: no counted row in this tile
   const int n_k = (D + BK - 1) / BK;
-  const int x_boxes = m0 + 64 < C ? 2 : 1;     // warpgroups with a row inside C
+  const int x_boxes = m0 + 64 < rows_e ? 2 : 1;  // warpgroups with a counted row
 
   if (tid == 0) {
 #pragma unroll
@@ -320,7 +336,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   // ---- consumers: warpgroup g owns rows m0 + 64 g .. + 63 ----
   const int g = tid / 128;
   const int t = tid % 128, warp = t / 32, lane = t % 32;
-  const bool live = m0 + 64 * g < C;
+  const bool live = m0 + 64 * g < rows_e;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
@@ -352,7 +368,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int row = m0 + 64 * g + 16 * warp + lane / 4 + 8 * j;
-    if (row >= C) continue;
+    if (row >= rows_e) continue;
     bf16* orow = out + (static_cast<long long>(e) * C + row) * F + n0 + cq;
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i)
@@ -362,7 +378,8 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-int launch(const void* x, const void* w, void* out, int E, int C, int D, int F, void* stream) {
+int launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
+           const int* counts, void* stream) {
   CUtensorMap xm, wm;
   const uint64_t xd[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(C),
                           static_cast<uint64_t>(E)};
@@ -383,7 +400,7 @@ int launch(const void* x, const void* w, void* out, int E, int C, int D, int F, 
   }
   const dim3 grid((C + BM - 1) / BM, (F + BN - 1) / BN, E);
   gmm_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      xm, wm, static_cast<bf16*>(out), C, D, F);
+      xm, wm, static_cast<bf16*>(out), C, D, F, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,17 +422,21 @@ constexpr int MAX_X_BYTES = 96 * 1024;
 template <int CM>
 __global__ void __launch_bounds__(THREADS)
 gmm_small_c_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   bf16* __restrict__ out, int C, int D, int F) {
+                   bf16* __restrict__ out, int C, int D, int F,
+                   const int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);
   __shared__ __align__(16) float red[WARPS][COLS];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int f0 = blockIdx.x * COLS, e = blockIdx.y;
 
-  // x[e] into shared memory; is any value non-zero (ignoring the sign bit)?
+  // with counts, only the counted rows; an expert without one does nothing
+  const int rows_e = counts ? min(C, __ldg(counts + e)) : C;
+  if (rows_e <= 0) return;
+  // x[e]'s rows into shared memory; is any value non-zero (ignoring the sign bit)?
   const bf16* xe = x + static_cast<long long>(e) * C * D;
-  const int n_vec = C * D / 8;
-  unsigned int any = 0;
+  const int n_vec = rows_e * D / 8;
+  unsigned int any = counts ? 1u : 0u;      // counted rows hold tokens
   for (int i = tid; i < n_vec; i += THREADS) {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(xe) + i);
     reinterpret_cast<uint4*>(xs)[i] = v;
@@ -461,7 +482,7 @@ gmm_small_c_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
 #pragma unroll
       for (int c = 0; c < CM; ++c) {
-        if (c >= C) break;
+        if (c >= rows_e) break;
         const float xv = __bfloat162float(xs[c * D + d0 + u]);
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[c][j] = fmaf(xv, wv[j], acc[c][j]);
@@ -472,7 +493,7 @@ gmm_small_c_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // the warps' partial sums, added in warp order, one row of C at a time
 #pragma unroll
   for (int c = 0; c < CM; ++c) {
-    if (c >= C) break;
+    if (c >= rows_e) break;         // uniform across the CTA
     float4* dst = reinterpret_cast<float4*>(&red[warp][8 * lane]);
     dst[0] = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
     dst[1] = make_float4(acc[c][4], acc[c][5], acc[c][6], acc[c][7]);
@@ -487,7 +508,7 @@ gmm_small_c_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 template <int CM>
 int launch_cm(const void* x, const void* w, void* out, int E, int C, int D, int F,
-              void* stream) {
+              const int* counts, void* stream) {
   static bool opted_in = false;     // idempotent, so a benign race
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -498,18 +519,20 @@ int launch_cm(const void* x, const void* w, void* out, int E, int C, int D, int 
   const dim3 grid((F + COLS - 1) / COLS, E);
   gmm_small_c_kernel<CM><<<grid, THREADS, static_cast<size_t>(C) * D * 2,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), C, D, F);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), C, D, F,
+      counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* x, const void* w, void* out, int E, int C, int D, int F, void* stream) {
+int launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
+           const int* counts, void* stream) {
   if (C < 1 || C > 16 || static_cast<long long>(C) * D * 2 > MAX_X_BYTES || D % 8 || F % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (C <= 1) return launch_cm<1>(x, w, out, E, C, D, F, stream);
-  if (C <= 2) return launch_cm<2>(x, w, out, E, C, D, F, stream);
-  if (C <= 4) return launch_cm<4>(x, w, out, E, C, D, F, stream);
-  if (C <= 8) return launch_cm<8>(x, w, out, E, C, D, F, stream);
-  return launch_cm<16>(x, w, out, E, C, D, F, stream);
+  if (C <= 1) return launch_cm<1>(x, w, out, E, C, D, F, counts, stream);
+  if (C <= 2) return launch_cm<2>(x, w, out, E, C, D, F, counts, stream);
+  if (C <= 4) return launch_cm<4>(x, w, out, E, C, D, F, counts, stream);
+  if (C <= 8) return launch_cm<8>(x, w, out, E, C, D, F, counts, stream);
+  return launch_cm<16>(x, w, out, E, C, D, F, counts, stream);
 }
 
 }  // namespace small_c
@@ -517,31 +540,34 @@ int launch(const void* x, const void* w, void* out, int E, int C, int D, int F, 
 }  // namespace
 
 // x [E, C, D] @ w [E, D, F], contiguous: 16-byte staging where every row
-// starts on 16 bytes, scalar staging otherwise
+// starts on 16 bytes, scalar staging otherwise.  counts: int32 [E] on the
+// device, or null (every entry point)
 extern "C" int grouped_matmul_f32(const void* x, const void* w, void* out, int E,
-                                  int C, int D, int F, void* stream) {
+                                  int C, int D, int F, const int* counts, void* stream) {
   const bool vec16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(w) % 16 == 0 && D % 4 == 0 && F % 4 == 0;
-  return vec16 ? launch<float, true>(x, w, out, E, C, D, F, stream)
-               : launch<float, false>(x, w, out, E, C, D, F, stream);
+  return vec16 ? launch<float, true>(x, w, out, E, C, D, F, counts, stream)
+               : launch<float, false>(x, w, out, E, C, D, F, counts, stream);
 }
 
 // the same in bf16, scalar staging: rows that start on 16 bytes take the
 // wgmma or small-C path
 extern "C" int grouped_matmul_bf16(const void* x, const void* w, void* out, int E,
-                                   int C, int D, int F, void* stream) {
-  return launch<__nv_bfloat16, false>(x, w, out, E, C, D, F, stream);
+                                   int C, int D, int F, const int* counts, void* stream) {
+  return launch<__nv_bfloat16, false>(x, w, out, E, C, D, F, counts, stream);
 }
 
 // bf16 x [E, C, D] @ w [E, D, F], contiguous, every row 16-byte aligned (D and
 // F multiples of 8): the tensor-core path
 extern "C" int grouped_matmul_bf16_wgmma(const void* x, const void* w, void* out, int E,
-                                         int C, int D, int F, void* stream) {
-  return wg::launch(x, w, out, E, C, D, F, stream);
+                                         int C, int D, int F, const int* counts,
+                                         void* stream) {
+  return wg::launch(x, w, out, E, C, D, F, counts, stream);
 }
 
 // the same arguments, C <= 16 and C * D * 2 <= 96 KB: the small-C path
 extern "C" int grouped_matmul_bf16_small_c(const void* x, const void* w, void* out, int E,
-                                           int C, int D, int F, void* stream) {
-  return small_c::launch(x, w, out, E, C, D, F, stream);
+                                           int C, int D, int F, const int* counts,
+                                           void* stream) {
+  return small_c::launch(x, w, out, E, C, D, F, counts, stream);
 }

@@ -10,11 +10,18 @@ strides: ``"wgmma"`` (the tensor-core kernel, bf16 prefill), ``"small_c"``
 ``"cuda_core"`` (fp32, or rows that do not start on 16 bytes, such as a
 ragged D or F).  A path that fails to launch raises; nothing falls back to
 another.
+
+With ``counts`` (int32 [E] on the card: the rows of x[e] that hold tokens,
+the dropless MoE's), no path computes, loads or stores a row of expert e at
+or past ``counts[e]``: a CTA whose row tile starts past it exits at once,
+so an empty expert reads no weight.  Those rows of the output are left
+unwritten.  Nothing is read back to the host, so the call can be captured.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -28,6 +35,11 @@ _ENTRY = {("cuda_core", torch.float32): "grouped_matmul_f32",
 MAX_GRID = 65535        # the grid's y (C / 64) and z (E) limits
 SMALL_C = 16            # the small-C path's largest C ...
 SMALL_C_X_BYTES = 96 * 1024   # ... and largest x[e] (it sits in shared memory)
+
+#: the rows a counted expert's computed rows round up to, by path: the
+#: tensor-core path's 64-row warpgroup, each small-C row, a CUDA-core
+#: thread's 4 rows
+ROW_TILE = {"wgmma": 64, "small_c": 1, "cuda_core": 4}
 
 #: launches of any kernel, and of each path (counts kept by this wrapper only)
 launches = LaunchCounter()
@@ -57,9 +69,16 @@ def gmm_path(x: torch.Tensor, w: torch.Tensor) -> str:
         raise ValueError(f"grouped matmul shapes: x {tuple(x.shape)}, w {tuple(w.shape)}")
     if E > MAX_GRID or (C + 63) // 64 > MAX_GRID:
         raise ValueError(f"grouped_matmul_cuda: E = {E} or C = {C} exceeds the grid")
-    if x.dtype != torch.bfloat16 or not _rows_aligned(x, w):
+    return path_of(x.dtype, C, D, w.shape[2], _rows_aligned(x, w))
+
+
+def path_of(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool = True) -> str:
+    """:func:`gmm_path` from the shapes alone; ``aligned``: the bases start
+    on 16 bytes (any tensor the allocator made)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    if dtype != torch.bfloat16 or not aligned or D * es % 16 or F * es % 16:
         return "cuda_core"
-    if C <= SMALL_C and C * D * x.element_size() <= SMALL_C_X_BYTES:
+    if C <= SMALL_C and C * D * es <= SMALL_C_X_BYTES:
         return "small_c"
     return "wgmma"
 
@@ -67,17 +86,25 @@ def gmm_path(x: torch.Tensor, w: torch.Tensor) -> str:
 @functools.lru_cache(maxsize=None)
 def _fn(path: str, dtype: torch.dtype):
     fn = getattr(library("grouped_matmul"), _ENTRY[path, dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
+                        counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [E, C, D] @ w [E, D, F] → [E, C, F] on the card, on the current
-    stream, by the kernel :func:`gmm_path` picks."""
+    stream, by the kernel :func:`gmm_path` picks; with ``counts`` (int32
+    [E] on x's device) only rows below ``counts[e]`` of expert e."""
     if x.device != w.device or x.device.type != "cuda":
         raise ValueError("grouped_matmul_cuda needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
+    if counts is not None and (counts.device != x.device or counts.dtype != torch.int32
+                               or tuple(counts.shape) != (x.shape[0],)
+                               or not counts.is_contiguous()):
+        raise ValueError("grouped_matmul_cuda takes counts as contiguous int32 [E] on "
+                         f"x's device, got {counts.dtype} {tuple(counts.shape)} on "
+                         f"{counts.device}")
     path = gmm_path(x, w)
     E, C, D = x.shape
     F = w.shape[2]
@@ -86,7 +113,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = _fn(path, x.dtype)(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
-                              stream)
+                              None if counts is None else counts.data_ptr(), stream)
     check(code, f"grouped_matmul ({path})")
     launches.add()
     path_launches[path].add()

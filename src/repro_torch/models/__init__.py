@@ -1,2 +1,3 @@
-from .config import ModelConfig, MoEConfig, SSMConfig, param_count
+from .config import (DeepSeekMoEConfig, MLAConfig, ModelConfig, MoEConfig, SSMConfig,
+                     param_count)
 from .model import Model

@@ -5,12 +5,21 @@ field differs: ``use_kernels`` (the reference's ``use_pallas``) takes the
 hand-written CUDA kernels where the reference's gate admits its Pallas
 kernels (flash attention K4, flash decode K3), and for the MoE expert GEMMs
 (grouped matmul K6, which the reference's MoE never calls).
+
+DeepSeek-V3's decoder (port-only): sigmoid scoring with a per-expert
+selection bias, a routed scale, dropless dispatch, leading dense layers and latent attention (:class:`MLAConfig`).
+They are the fields of :class:`DeepSeekMoEConfig`, a ``MoEConfig`` that
+``ModelConfig.moe`` may hold, and ``MoEConfig`` gives each as a plain class
+attribute at the value that computes what the reference does: so
+``MoEConfig``'s and ``ModelConfig``'s own fields (and a registry model's
+``asdict``) stay the reference's, and ``cfg.moe.scoring``,
+``cfg.first_dense_layers`` or ``cfg.mla`` read alike on every model.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -21,6 +30,68 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_dtype: str = "float32"
     n_shared_experts: int = 0  # always-on shared expert(s)
+
+    # DeepSeekMoEConfig's fields, at the values of the reference's MoE (class
+    # attributes, not fields)
+    scoring = "softmax"
+    selection_bias = False
+    routed_scale = 1.0
+    dropless = False
+    first_dense_layers = 0
+    mla = None                 # Optional[MLAConfig]
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3) without a query
+    low-rank: keys and values come from one normed ``kv_lora_rank`` latent
+    a token, plus one ``qk_rope_head_dim`` rotary key shared by every head;
+    the decode cache holds the two (``kv_lora_rank + qk_rope_head_dim``
+    values a token and layer)."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def cache_width(self) -> int:
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+_MOE_FIELDS = frozenset(f.name for f in dataclasses.fields(MoEConfig))
+
+
+@dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """The MoE of DeepSeek-V3's decoder (Moonlight-16B-A3B), and the rest of
+    its block.  Made with none of its own fields given, it is the
+    reference's plain ``MoEConfig``: a configuration file's ``moe`` object
+    of ``MoEConfig``'s fields alone builds what the registry's models hold."""
+    # "softmax": top-k of the softmax; "sigmoid": top-k of sigmoid scores
+    # (DeepSeek-V3's scoring_func), each token's weights its bare scores
+    scoring: str = "softmax"
+    # a learned per-expert bias added to the scores for selection only
+    # (DeepSeek-V3's e_score_correction_bias; topk_method noaux_tc)
+    selection_bias: bool = False
+    routed_scale: float = 1.0  # routed experts' output scale (routed_scaling_factor)
+    # every assignment is computed (capacity_factor is not used): the expert
+    # buffer holds every token, and K6 computes no row past an expert's count
+    dropless: bool = False
+    # the first layers take a dense MLP of the model's d_ff, the rest the
+    # MoE FFN (first_k_dense_replace)
+    first_dense_layers: int = 0
+    # latent attention in every layer in place of GQA (the model's n_kv and
+    # d_head unused)
+    mla: Optional[MLAConfig] = None
+
+    def __new__(cls, *args, **kw):
+        if (args or kw) and len(args) <= len(_MOE_FIELDS) and set(kw) <= _MOE_FIELDS:
+            return MoEConfig(*args, **kw)
+        return super().__new__(cls)
 
 
 @dataclass(frozen=True)
@@ -70,7 +141,9 @@ class ModelConfig:
     frontend: Optional[str] = None          # None | vision | audio
     frontend_seq: int = 0
 
-    moe: Optional[MoEConfig] = None
+    # a DeepSeekMoEConfig where the model is DeepSeek-V3's (built from a
+    # nested object of this name: the first class of the hint)
+    moe: Optional[Union[DeepSeekMoEConfig, MoEConfig]] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): a weight-shared attention block runs after every
     # `hybrid_group` SSM blocks.
@@ -105,6 +178,16 @@ class ModelConfig:
         return self.d_head if self.d_head is not None else self.d_model // self.n_heads
 
     @property
+    def mla(self) -> Optional[MLAConfig]:
+        """Latent attention in every layer (DeepSeek-V3), or None: GQA."""
+        return None if self.moe is None else self.moe.mla
+
+    @property
+    def first_dense_layers(self) -> int:
+        """Leading layers of a moe model that take a dense MLP of ``d_ff``."""
+        return 0 if self.moe is None else self.moe.first_dense_layers
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
@@ -125,11 +208,21 @@ class ModelConfig:
 # Parameter counting (used for MODEL_FLOPS = 6·N·D in §Roofline)
 # ---------------------------------------------------------------------------
 def _attn_params(cfg: ModelConfig) -> int:
+    if cfg.mla is not None:
+        return _mla_params(cfg)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     n = d * h * dh + 2 * d * kv * dh + h * dh * d     # q, k, v, o
     if cfg.qkv_bias:
         n += h * dh + 2 * kv * dh
     return n
+
+
+def _mla_params(cfg: ModelConfig) -> int:
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    return (d * h * m.qk_head_dim                       # q
+            + d * m.cache_width + m.kv_lora_rank        # latent + rope key, latent norm
+            + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)   # k, v up
+            + h * m.v_head_dim * d)                     # o
 
 
 def _mlp_params(d_model: int, d_ff: int, act: str) -> int:
@@ -154,7 +247,7 @@ def _moe_layer_params(cfg: ModelConfig) -> Tuple[int, int]:
     """(total, active) params of one MoE FFN layer."""
     m = cfg.moe
     per_expert = _mlp_params(cfg.d_model, m.d_ff_expert, cfg.act)
-    router = cfg.d_model * m.n_experts
+    router = cfg.d_model * m.n_experts + (m.n_experts if m.selection_bias else 0)
     shared = m.n_shared_experts * per_expert
     total = m.n_experts * per_expert + router + shared
     active = m.top_k * per_expert + router + shared
@@ -179,8 +272,15 @@ def param_count(cfg: ModelConfig) -> Tuple[int, int]:
             ffn_total = ffn_active = _mlp_params(d, cfg.d_ff, cfg.act)
         per_layer_total = attn + ffn_total + 2 * norm()
         per_layer_active = attn + ffn_active + 2 * norm()
-        total += cfg.n_layers * per_layer_total
-        active += cfg.n_layers * per_layer_active
+        n_moe = cfg.n_layers
+        if cfg.first_dense_layers:
+            n_moe -= cfg.first_dense_layers
+            dense = (attn + _mlp_params(d, cfg.d_ff, cfg.act) + 2 * norm()) \
+                * cfg.first_dense_layers
+            total += dense
+            active += dense
+        total += n_moe * per_layer_total
+        active += n_moe * per_layer_active
         if cfg.is_encdec:
             enc_layer = attn + _mlp_params(d, cfg.d_ff, cfg.act) + 2 * norm()
             cross = _attn_params(cfg) + norm()

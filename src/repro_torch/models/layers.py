@@ -7,18 +7,33 @@ parameters across with :func:`repro_torch.interop.params_from_numpy`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 Params = Dict[str, Any]
 
 
 def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A model layer's span, gated as the serving loop's
+    (``serve/telemetry.py``): open only while a ``torch.profiler`` session
+    records, else a shared no-op context; a captured step replays no host
+    code, so it opens none."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return record_function(name)
 
 
 # ---------------------------------------------------------------------------

@@ -106,12 +106,15 @@ class Model(nn.Module):
 
     def prefill(self, params: Any, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None, *,
-                pad_width: Optional[torch.Tensor] = None):
+                pad_width: Optional[torch.Tensor] = None,
+                moe_counts: Optional[torch.Tensor] = None):
         """``pad_width`` [B] int32: per-sequence left-pad widths, masked out
         of every attention with rope positions shifted, so a left-padded
         prompt is bit-exact with its unpadded reference.  SSM/hybrid state
         scans cannot skip pad steps, so those families reject ``pad_width``
-        (serve them unpadded, as the continuous batcher does)."""
+        (serve them unpadded, as the continuous batcher does).
+        ``moe_counts`` [MoE layers, E] int32 on the device (the moe family):
+        each MoE layer's tokens per expert are written to its row."""
         cfg = self.cfg
         if cfg.family in ("hybrid", "ssm"):
             if pad_width is not None:
@@ -124,24 +127,30 @@ class Model(nn.Module):
         return transformer.prefill(params, self.cfg, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"),
                                    enc_embeds=batch.get("enc_embeds"),
-                                   cache_len=cache_len, pad_width=pad_width)
+                                   cache_len=cache_len, pad_width=pad_width,
+                                   moe_counts=moe_counts)
 
     def decode_step(self, params: Any, token: torch.Tensor, cache, pos, *,
-                    pad_width: Optional[torch.Tensor] = None, pad_offset: int = 0):
+                    pad_width: Optional[torch.Tensor] = None, pad_offset: int = 0,
+                    moe_counts: Optional[torch.Tensor] = None,
+                    live: Optional[torch.Tensor] = None):
         """``pos`` an int, or a device tensor, 0-dim or [B] (per-row fills),
         which the step never reads on the host, so that it can be captured
         as a CUDA graph (the three forms give the same bits); the cache is
         updated in place and returned.  ``pad_width`` and
         ``pad_offset`` continue a pad-masked prefill (attention families
         only; the ssm and hybrid families ignore them, as the reference's
-        do)."""
+        do).  ``moe_counts`` as :meth:`prefill`'s; ``live`` [B] bool on the
+        device, the rows a dropless MoE routes (the others, a serving
+        batch's free slots, get no routed output)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             return hybrid.hybrid_decode_step(params, cfg, token, cache, pos)
         if cfg.family == "ssm":
             return mamba_lm.mamba_lm_decode_step(params, cfg, token, cache, pos)
         return transformer.decode_step(params, self.cfg, token, cache, pos,
-                                       pad_width=pad_width, pad_offset=pad_offset)
+                                       pad_width=pad_width, pad_offset=pad_offset,
+                                       moe_counts=moe_counts, live=live)
 
     def make_cache(self, params: Any, batch_size: int, max_len: int,
                    memory: Optional[torch.Tensor] = None):

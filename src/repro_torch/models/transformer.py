@@ -9,6 +9,17 @@ reference's ``logical_constraint`` sharding hints and remat have no meaning
 on one card and are left out.  The moe family's FFN is ``moe.moe_apply``
 (its expert GEMMs on the grouped-matmul kernel K6 under ``use_kernels``);
 ``forward`` returns the sum of its per-layer aux losses, as the reference's.
+
+Port-only, off by default: with ``cfg.first_dense_layers`` = n the first n
+layers of a moe model take a dense MLP, stacked apart under
+``params["dense_layers"]`` (``params["layers"]`` holds the MoE layers);
+with ``cfg.mla`` every layer's attention is latent (``models/mla.py``) and
+the decode cache is one [L, B, S, kv_lora_rank + rope] latent leaf, its
+structure ``((latent,), None)`` where GQA's is ``((k, v), cross)``.
+Serving may pass ``moe_counts`` [MoE layers, E] int32 on the device to
+:func:`prefill` and :func:`decode_step`: the j-th MoE layer writes its
+tokens per expert to row j (``moe.moe_apply``'s ``counts_out``); and
+``live`` [B] bool to :func:`decode_step`, the rows a dropless MoE routes.
 """
 from __future__ import annotations
 
@@ -21,8 +32,9 @@ from .attention import (Pos, _project, attn_apply, attn_init, init_kv_cache,
                         project_memory, row_positions)
 from .config import ModelConfig
 from .layers import (Params, apply_rope, cross_entropy_loss, dtype_of, embed_apply,
-                     embed_init, mlp_apply, mlp_init, normal_init, rms_norm,
+                     embed_init, mlp_apply, mlp_init, normal_init, rms_norm, span,
                      unembed_apply)
+from .mla import init_latent_cache, mla_decode, mla_init, mla_prefill
 from .moe import moe_apply, moe_init
 
 
@@ -42,18 +54,32 @@ def layer_params(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+def decoder_layer(params: Params, cfg: ModelConfig, i: int) -> Params:
+    """Decoder layer ``i``'s parameters, a leading dense layer's or a
+    stacked layer's."""
+    n = cfg.first_dense_layers
+    if i < n:
+        return layer_params(params["dense_layers"], i)
+    return layer_params(params["layers"], i - n)
+
+
+def moe_layer_count(cfg: ModelConfig) -> int:
+    """Decoder layers that take the MoE FFN."""
+    return cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
-                cross: bool) -> Params:
+                cross: bool, dense: bool = False) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     p: Params = {
-        "attn": attn_init(gen, cfg, n_layers),
+        "attn": (mla_init if cfg.mla is not None else attn_init)(gen, cfg, n_layers),
         "norm1": torch.zeros(n_layers, cfg.d_model, dtype=dtype, device=gen.device),
         "norm2": torch.zeros(n_layers, cfg.d_model, dtype=dtype, device=gen.device),
     }
-    if cfg.family == "moe":
+    if cfg.family == "moe" and not dense:
         p["moe"] = moe_init(gen, cfg, n_layers)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, n_layers)
@@ -66,11 +92,12 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
 
 def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dtype = dtype_of(cfg.param_dtype)
-    p: Params = {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
-        "layers": _layer_init(gen, cfg, cfg.n_layers, cross=cfg.is_encdec),
-        "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=gen.device),
-    }
+    n_dense = cfg.first_dense_layers
+    p: Params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype)}
+    if n_dense:
+        p["dense_layers"] = _layer_init(gen, cfg, n_dense, cross=cfg.is_encdec, dense=True)
+    p["layers"] = _layer_init(gen, cfg, cfg.n_layers - n_dense, cross=cfg.is_encdec)
+    p["final_norm"] = torch.zeros(cfg.d_model, dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
         p["unembed"] = {"table": normal_init(gen, (cfg.vocab, cfg.d_model), dtype)}
     if cfg.is_encdec:
@@ -82,27 +109,52 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         moe_counts: Optional[torch.Tensor] = None, live: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FFN sublayer → (y, the MoE aux loss; None for a dense MLP, whose
     aux is zero: no zero tensor is made per layer)."""
-    if cfg.family == "moe":
-        return moe_apply(p["moe"], x, cfg)
+    if "moe" in p:
+        return moe_apply(p["moe"], x, cfg, moe_counts, live)
     return mlp_apply(p["mlp"], x, cfg.act), None
+
+
+def _mla(p: Params, h: torch.Tensor, cfg: ModelConfig, *, positions, cache,
+         cache_pos, k_valid, latent_out):
+    """Latent self-attention: prefill (``cache`` None; the latent written
+    to ``latent_out`` [B, S_cache, *] where given) or decode against
+    ``cache`` ((latent,), None) → (out, new_self)."""
+    with span("model.mla"):
+        if cache is None:
+            out, lat = mla_prefill(p, h, cfg, positions=positions, k_valid=k_valid)
+            if latent_out is not None:
+                latent_out[:, :h.shape[1]] = lat.to(latent_out.dtype)
+            return out, None
+        pos = row_positions(cache_pos, h.shape[0], h.device)
+        return mla_decode(p, h, cfg, cache[0], positions=positions, cache_pos=pos,
+                          k_valid=k_valid), cache
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions, window: int,
            memory=None, cache=None, cache_pos: Optional[Pos] = None, causal=True,
-           k_valid=None):
+           k_valid=None, moe_counts: Optional[torch.Tensor] = None,
+           latent_out: Optional[torch.Tensor] = None, live: Optional[torch.Tensor] = None):
     """Pre-norm transformer block; returns (x, aux, new_cache).
 
     ``k_valid`` [B,Sk] masks left-pad key slots out of *self*-attention
-    (cross-attention memory carries no pads)."""
-    h, new_self = attn_apply(p["attn"], rms_norm(x, p["norm1"], cfg.rms_eps),
-                             cfg, positions=positions, window=window,
-                             cache=None if cache is None else cache[0],
-                             cache_pos=cache_pos, causal=causal,
-                             k_valid=k_valid)
+    (cross-attention memory carries no pads).  ``moe_counts`` [E]: where an
+    MoE FFN writes its tokens per expert; ``latent_out``: where a latent
+    prefill writes the layer's cache; ``live`` [B]: the rows a dropless MoE
+    FFN routes."""
+    normed = rms_norm(x, p["norm1"], cfg.rms_eps)
+    self_cache = None if cache is None else cache[0]
+    if cfg.mla is not None:
+        h, new_self = _mla(p["attn"], normed, cfg, positions=positions, cache=self_cache,
+                           cache_pos=cache_pos, k_valid=k_valid, latent_out=latent_out)
+    else:
+        h, new_self = attn_apply(p["attn"], normed, cfg, positions=positions,
+                                 window=window, cache=self_cache, cache_pos=cache_pos,
+                                 causal=causal, k_valid=k_valid)
     x = x + h
     new_cross = None
     if "cross" in p:
@@ -111,19 +163,20 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions, window: i
             positions=positions, memory=memory, is_cross=True,
             cache=None if cache is None else cache[1])
         x = x + h
-    h, aux = _ffn(p, rms_norm(x, p["norm2"], cfg.rms_eps), cfg)
+    h, aux = _ffn(p, rms_norm(x, p["norm2"], cfg.rms_eps), cfg, moe_counts, live)
     x = x + h
     return x, aux, None if cache is None else (new_self, new_cross)
 
 
-def _run_blocks(params_layers: Params, x: torch.Tensor, cfg: ModelConfig, *,
+def _run_blocks(layer, x: torch.Tensor, cfg: ModelConfig, *,
                 windows: np.ndarray, positions, memory=None,
                 causal=True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence pass (forward / encoder) over the stacked layers →
-    (x, the layers' aux losses summed in fp32)."""
+    """Full-sequence pass (forward / encoder) over the layers, ``layer(i)``
+    giving layer i's parameters → (x, the layers' aux losses summed in
+    fp32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(windows):
-        x, a, _ = _block(layer_params(params_layers, i), x, cfg, positions=positions,
+        x, a, _ = _block(layer(i), x, cfg, positions=positions,
                          window=int(window), memory=memory, causal=causal)
         if a is not None:
             aux = aux + a.to(torch.float32)
@@ -149,7 +202,7 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.
     """Bidirectional encoder over frontend embeddings (enc-dec archs)."""
     x = enc_embeds.to(dtype_of(cfg.compute_dtype))
     S = x.shape[1]
-    x, _ = _run_blocks(params["enc_layers"], x, cfg,
+    x, _ = _run_blocks(lambda i: layer_params(params["enc_layers"], i), x, cfg,
                        windows=np.zeros(cfg.encoder_layers, np.int32),
                        positions=torch.arange(S, dtype=torch.int32, device=x.device),
                        causal=False)
@@ -174,7 +227,8 @@ def forward(params: Params, cfg: ModelConfig, *, tokens: Optional[torch.Tensor] 
         memory = encode(params, cfg, enc_embeds)
     x = _input_embeds(params, cfg, tokens, embeds)
     S = x.shape[1]
-    x, aux = _run_blocks(params["layers"], x, cfg, windows=window_schedule(cfg),
+    x, aux = _run_blocks(lambda i: decoder_layer(params, cfg, i), x, cfg,
+                         windows=window_schedule(cfg),
                          positions=torch.arange(S, dtype=torch.int32, device=x.device),
                          memory=memory)
     return _logits(params, cfg, x), aux
@@ -205,11 +259,18 @@ def _cross_cache(params: Params, cfg: ModelConfig, memory: torch.Tensor):
     return (torch.stack([k for k, _ in proj]), torch.stack([v for _, v in proj]))
 
 
+def _self_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    if cfg.mla is not None:
+        return (init_latent_cache(cfg, batch, max_len, cfg.n_layers, device=device),)
+    return init_kv_cache(cfg, batch, max_len, cfg.n_layers, device=device)
+
+
 def make_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
                memory: Optional[torch.Tensor] = None):
-    """Cache: (self (k, v) [L,B,S,K,Dh], cross (k, v) or None), stacked on L."""
+    """Cache: (self (k, v) [L,B,S,K,Dh] or (latent,) [L,B,S,kv_lora_rank +
+    rope], cross (k, v) or None), stacked on L."""
     device = params["final_norm"].device
-    self_kv = init_kv_cache(cfg, batch, max_len, cfg.n_layers, device=device)
+    self_kv = _self_cache(cfg, batch, max_len, device)
     if not cfg.is_encdec:
         return (self_kv, None)
     if memory is None:
@@ -220,12 +281,13 @@ def make_cache(params: Params, cfg: ModelConfig, batch: int, max_len: int,
 def cache_batch_axes(cfg: ModelConfig):
     """The batch axis of each leaf of :func:`make_cache`'s cache, in its
     structure: axis 1 throughout."""
-    return ((1, 1), (1, 1) if cfg.is_encdec else None)
+    return ((1,) if cfg.mla is not None else (1, 1), (1, 1) if cfg.is_encdec else None)
 
 
 def prefill(params: Params, cfg: ModelConfig, *, tokens=None, embeds=None,
             enc_embeds=None, cache_len: Optional[int] = None,
-            pad_width: Optional[torch.Tensor] = None):
+            pad_width: Optional[torch.Tensor] = None,
+            moe_counts: Optional[torch.Tensor] = None):
     """Run the full prompt, build the KV cache, return (last_logits, cache, pos).
 
     Each layer's prompt K/V are recomputed from the layer's normed input
@@ -254,9 +316,17 @@ def prefill(params: Params, cfg: ModelConfig, *, tokens=None, embeds=None,
         positions = torch.where(base[None, :] >= prefix,
                                 base[None, :] - pw[:, None], base[None, :])
     windows = window_schedule(cfg)
+    counts = _moe_rows(cfg, moe_counts)
+    if cfg.mla is not None:
+        (cache_lat,) = self_kv = _self_cache(cfg, B, max_len, dev)
+        for i, window in enumerate(windows):
+            x, _, _ = _block(decoder_layer(params, cfg, i), x, cfg, positions=positions,
+                             window=int(window), k_valid=k_valid, moe_counts=counts[i],
+                             latent_out=cache_lat[i])
+        return _logits(params, cfg, x[:, -1:]), (self_kv, None), S
     cache_k, cache_v = init_kv_cache(cfg, B, max_len, cfg.n_layers, device=dev)
     for i, window in enumerate(windows):
-        lp = layer_params(params["layers"], i)
+        lp = decoder_layer(params, cfg, i)
         normed = rms_norm(x, lp["norm1"], cfg.rms_eps)
         kproj = apply_rope(_project(lp["attn"], normed, "wk", "bk", cfg.n_kv,
                                     cfg.head_dim), positions, cfg.rope_theta)
@@ -264,15 +334,25 @@ def prefill(params: Params, cfg: ModelConfig, *, tokens=None, embeds=None,
         cache_k[i, :, :S] = kproj.to(cache_k.dtype)
         cache_v[i, :, :S] = vproj.to(cache_v.dtype)
         x, _, _ = _block(lp, x, cfg, positions=positions, window=int(window),
-                         memory=memory, k_valid=k_valid)
+                         memory=memory, k_valid=k_valid, moe_counts=counts[i])
     logits = _logits(params, cfg, x[:, -1:])
     cross = _cross_cache(params, cfg, memory) if cfg.is_encdec else None
     return logits, ((cache_k, cache_v), cross), S
 
 
+def _moe_rows(cfg: ModelConfig, moe_counts: Optional[torch.Tensor]) -> list:
+    """Each decoder layer's row of ``moe_counts`` (None for a dense layer,
+    or without it)."""
+    n = cfg.n_layers - moe_layer_count(cfg)
+    if moe_counts is None:
+        return [None] * cfg.n_layers
+    return [None] * n + [moe_counts[j] for j in range(cfg.n_layers - n)]
+
+
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor, cache,
                 pos: Pos, *, pad_width: Optional[torch.Tensor] = None,
-                pad_offset: int = 0):
+                pad_offset: int = 0, moe_counts: Optional[torch.Tensor] = None,
+                live: Optional[torch.Tensor] = None):
     """One token step. token [B,1] int32; ``pos`` is the cache fill count:
     an int (one fill for every row), or a device tensor, 0-dim or [B]
     (per-row fills), which is broadcast to [B] and never read on the host,
@@ -282,25 +362,28 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor, cache,
     ``pad_width`` [B] + ``pad_offset`` describe left-pad runs written into
     the cache at prefill ([pad_offset, pad_offset + pad_width[b])): those key
     slots are masked out and rope positions shift down by the pad width.
-    The cache is updated in place and returned.
+    ``live`` [B] bool on the device: the rows a dropless MoE routes (a free
+    serving slot's row gets no routed output).  The cache is updated in
+    place and returned.
     """
     x = embed_apply(params["embed"], token).to(dtype_of(cfg.compute_dtype))
     dev = x.device
-    (cache_k, cache_v), cross = cache
+    self_cache, cross = cache
     pos = row_positions(pos, x.shape[0], dev)               # [B]
     k_valid = None
     logical = pos
     if pad_width is not None:
         pw = torch.as_tensor(pad_width, dtype=torch.int32, device=dev)   # [B]
         logical = pos - pw                                  # [B]
-        base = torch.arange(cache_k.shape[2], dtype=torch.int32, device=dev)
+        base = torch.arange(self_cache[0].shape[2], dtype=torch.int32, device=dev)
         k_valid = ~((base[None, :] >= pad_offset)
                     & (base[None, :] < pad_offset + pw[:, None]))
     positions = logical[:, None]                            # [B,1]
+    counts = _moe_rows(cfg, moe_counts)
     for i, window in enumerate(window_schedule(cfg)):
-        layer_cache = ((cache_k[i], cache_v[i]),
+        layer_cache = (tuple(leaf[i] for leaf in self_cache),
                        None if cross is None else (cross[0][i], cross[1][i]))
-        x, _, _ = _block(layer_params(params["layers"], i), x, cfg,
+        x, _, _ = _block(decoder_layer(params, cfg, i), x, cfg,
                          positions=positions, window=int(window), cache=layer_cache,
-                         cache_pos=pos, k_valid=k_valid)
+                         cache_pos=pos, k_valid=k_valid, moe_counts=counts[i], live=live)
     return _logits(params, cfg, x), cache

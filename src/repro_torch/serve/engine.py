@@ -80,7 +80,15 @@ log, and while a ``torch.profiler`` session records it opens spans where
 the work happens: ``serve.step`` around the step; ``serve.prefill``,
 ``serve.insert`` and ``serve.wait`` in admission; ``serve.retire`` around
 the token read-back; ``serve.decode`` (with ``.replay``, ``.capture`` or
-``.eager`` inside), ``serve.sample`` and ``serve.wait`` in the decode.
+``.eager`` inside), ``serve.sample`` and ``serve.wait`` in the decode; the
+model's own, in an eager pass, ``model.mla``, ``model.moe.route`` and
+``model.moe.experts``.  For a model with MoE layers the step record also
+holds what they did in the step's prefills and in its decode apart
+(``moe.MoECounts``): each MoE layer writes its tokens per expert into a
+device buffer of the engine's (inside the captured graph for the decode),
+which is copied to the host behind the step's work and read after the
+synchronization the step already makes.  A dropless MoE routes only the
+decode's live rows: a free slot's row pulls in no expert.
 """
 from __future__ import annotations
 
@@ -96,6 +104,8 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..models.layers import dtype_of
 from ..models.model import Model
+from ..models.moe import MoECounts, expert_counters
+from ..models.transformer import moe_layer_count
 from . import telemetry
 from .graph import CapturedStep
 from .telemetry import TELEMETRY, RequestRecord, StepRecord, span
@@ -177,12 +187,56 @@ def _sync(device: torch.device) -> None:
 
 def _decode_logits(model: Model, params: Any, token: torch.Tensor, cache: Any,
                    pos: torch.Tensor, pad_width: Optional[torch.Tensor],
-                   pad_offset: int) -> torch.Tensor:
+                   pad_offset: int, moe_counts: Optional[torch.Tensor] = None,
+                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step's logits; the cache is written in place.  A module
     function over explicit arguments: a captured step holds it, and it must
     not hold the engine (which holds the step)."""
+    kw = {} if moe_counts is None else {"moe_counts": moe_counts}
+    if live is not None:
+        kw["live"] = live
     return model.decode_step(params, token, cache, pos, pad_width=pad_width,
-                             pad_offset=pad_offset)[0]
+                             pad_offset=pad_offset, **kw)[0]
+
+
+class _ExpertCounts:
+    """The engine's buffers for its MoE layers' tokens per expert: on the
+    device [slots, MoE layers, E] for the prefill groups of a step (one
+    block a group) and [MoE layers, E] for the decode, and their host
+    copies (pinned on the card, so the copies run behind the step's
+    work).  A dropless MoE also gets ``live`` [slots] bool on the device,
+    the decode's live slots: a free slot's row is routed to no expert, so
+    the decode computes, and its counters count, the live rows only."""
+
+    def __init__(self, model: Model, slots: int, device: torch.device) -> None:
+        cfg = model.cfg
+        shape = (moe_layer_count(cfg), cfg.moe.n_experts)
+        self.cfg, self.device = cfg, device
+        self.prefill = torch.zeros(slots, *shape, dtype=torch.int32, device=device)
+        self.decode = torch.zeros(shape, dtype=torch.int32, device=device)
+        self.live = (torch.zeros(slots, dtype=torch.bool, device=device)
+                     if cfg.moe.dropless else None)
+        pin = device.type == "cuda"
+        self._host = {"prefill": torch.zeros(self.prefill.shape, dtype=torch.int32,
+                                             pin_memory=pin),
+                      "decode": torch.zeros(shape, dtype=torch.int32, pin_memory=pin)}
+
+    def copy_back(self, which: str, n: int = 1) -> None:
+        """Queue the copy of the decode's, or the first ``n`` prefill
+        groups', counts to the host (read after the step's sync)."""
+        src = self.decode if which == "decode" else self.prefill[:n]
+        self._host[which][:src.shape[0]].copy_(src, non_blocking=True)
+
+    def read(self, which: str, tokens: Sequence[int]) -> MoECounts:
+        """The counters of the decode (``tokens``: its rows) or of the
+        prefill groups (``tokens``: each group's rows x length)."""
+        host = self._host[which].numpy()
+        if which == "decode":
+            return expert_counters(host, tokens[0], self.cfg, self.device)
+        out = MoECounts()
+        for g, T in enumerate(tokens):
+            out = out + expert_counters(host[g], T, self.cfg, self.device)
+        return out
 
 
 class ServeEngine:
@@ -394,6 +448,8 @@ class ServeEngine:
         self._c_req: List[Optional[Request]] = [None] * B
         self._c_res: List[Optional[Result]] = [None] * B
         self._c_rec: List[Optional[RequestRecord]] = [None] * B
+        self._c_moe = (_ExpertCounts(self.model, B, self.device)
+                       if self.model.cfg.family == "moe" else None)
         self._slots_ready = True
 
     def _prefill_groups(self, admits: List[Tuple[Request, int]]
@@ -433,7 +489,8 @@ class ServeEngine:
                      on: bool) -> None:
         t0 = time.perf_counter()
         B = self.cfg.batch
-        for members, S in self._prefill_groups(admits):
+        moe, group_tokens = self._c_moe, []
+        for g, (members, S) in enumerate(self._prefill_groups(admits)):
             t_group = time.perf_counter()
             # the plain route pads the group to a constant B rows; the
             # kernel route prefills the members' rows only
@@ -449,11 +506,13 @@ class ServeEngine:
                     toks[i, S - L:] = np.asarray(r.prompt, np.int32)
                     pw[i] = S - L
                 pad = torch.from_numpy(pw).to(self.device) if self._pad_mask else None
+                kw = {} if moe is None else {"moe_counts": moe.prefill[g]}
                 logits, cache_k, pos1 = self.model.prefill(
                     self.params, self._batch(toks), cache_len=self.cfg.max_len,
-                    pad_width=pad)
+                    pad_width=pad, **kw)
                 tok_k = self._sample(logits)
             rec.prefill_tokens += rows * S
+            group_tokens.append(rows * S)
             rec.prompt_tokens += sum(len(r.prompt) for r, _ in members)
             with span(on, "serve.insert"):
                 if self._c_cache is None:
@@ -470,8 +529,12 @@ class ServeEngine:
                     self._c_rec[b] = RequestRecord(r.rid, len(r.prompt), S, t_group)
                     TELEMETRY.request_log.append(self._c_rec[b])
                     self._c_active[b] = True
+        if moe is not None:
+            moe.copy_back("prefill", len(group_tokens))
         with span(on, "serve.wait"):
             _sync(self.device)
+        if moe is not None:
+            rec.moe_prefill = moe.read("prefill", group_tokens)
         dt = (time.perf_counter() - t0) / len(admits)
         for r, b in admits:
             self._c_res[b].prefill_s = dt
@@ -538,6 +601,9 @@ class ServeEngine:
         if act.any():
             t0 = time.perf_counter()
             self._c_posd.copy_(torch.from_numpy(self._c_pos))
+            moe = self._c_moe
+            if moe is not None and moe.live is not None:
+                moe.live.copy_(torch.from_numpy(act))
             # no live slot carries pads (or the family cannot mask): take
             # the unmasked decode (bit-identical where the mask is the
             # identity)
@@ -549,7 +615,8 @@ class ServeEngine:
                     self._c_pwd.copy_(torch.from_numpy(self._c_pw))
                 logits = self._decode(("continuous", self.cfg.batch, masked), functools.partial(
                     _decode_logits, self.model, self.params, self._c_tok, self._c_cache,
-                    self._c_posd, self._c_pwd if masked else None, self._prefix), on)
+                    self._c_posd, self._c_pwd if masked else None, self._prefix,
+                    *(() if moe is None else (moe.decode, moe.live))), on)
                 rec.t_launch = time.perf_counter()
             rec.decode_rows, rec.masked = int(act.sum()), masked
             with span(on, "serve.sample"):
@@ -559,8 +626,13 @@ class ServeEngine:
             with span(on, "serve.wait"):
                 live = torch.from_numpy(act).to(self.device)[:, None]
                 self._c_tok.copy_(torch.where(live, nxt, self._c_tok))
+                if moe is not None:
+                    moe.copy_back("decode")
                 _sync(self.device)
             rec.t_synced = time.perf_counter()
+            if moe is not None:
+                # a dropless MoE routes the live rows only; any other, every row
+                rec.moe_decode = moe.read("decode", [self.cfg.batch])
             self._c_pos[act] += 1
             dt = (time.perf_counter() - t0) / int(act.sum())
             for b in np.flatnonzero(act):

@@ -24,7 +24,11 @@ signature), ``t_launch`` when the decode's launch call returned and
 decode); ``profiled``, a profiler recorded the step (its spans were on,
 and the profiler's own cost is in its times: under CUDA tracing a graph
 launch call takes milliseconds, and more than before it once tracing
-has stopped).  Request record fields: ``t_admit`` the start of its prefill
+has stopped); ``moe_prefill`` and ``moe_decode``, a model with MoE layers:
+what they did in the step's prefills and in its decode
+(``models.moe.MoECounts``: layer launches, experts that held a token,
+real expert rows, rows the expert GEMMs computed; None otherwise, and
+``moe_decode`` None in a step without a decode).  Request record fields: ``t_admit`` the start of its prefill
 group, ``t_first`` when its first token was read back to the host (NaN
 until then).
 """
@@ -46,7 +50,7 @@ _OFF = contextlib.nullcontext()
 
 class StepRecord:
     __slots__ = ("t0", "t1", "t_launch", "t_synced", "prefill_tokens", "prompt_tokens",
-                 "decode_rows", "masked", "profiled")
+                 "decode_rows", "masked", "profiled", "moe_prefill", "moe_decode")
 
     def __init__(self, t0: float, profiled: bool = False) -> None:
         self.t0 = t0
@@ -54,6 +58,7 @@ class StepRecord:
         self.t1 = self.t_launch = self.t_synced = _NAN
         self.prefill_tokens = self.prompt_tokens = self.decode_rows = 0
         self.masked = False
+        self.moe_prefill = self.moe_decode = None
 
 
 class RequestRecord:

@@ -562,6 +562,149 @@ def test_grouped_matmul_bf16_paths_with_empty_experts(cuda_device, C, empty):
     assert not out[empty_experts].any()
 
 
+def _routed_counts(gen, T: int, E: int, k: int, device) -> torch.Tensor:
+    """Tokens per expert of T tokens that each pick k of E experts at random."""
+    idx = torch.rand(T, E, generator=gen, device=device).topk(k, dim=-1).indices
+    return torch.bincount(idx.flatten(), minlength=E).to(torch.int32)
+
+
+@pytest.mark.parametrize("C,D,F,path", [
+    (1020, 2048, 1408, "wgmma"), (1020, 1408, 2048, "wgmma"),     # a 1,020-token prefill
+    (32, 2048, 1408, "wgmma"), (32, 1408, 2048, "wgmma"),         # 32 slots: C > SMALL_C
+    (16, 2048, 1408, "small_c")])
+def test_grouped_matmul_counts_match_plain_on_counted_rows(cuda_device, C, D, F, path):
+    """K6 with per-expert counts at the moonlight-16b-a3b chat cell's
+    shapes (64 experts, top-6, dropless C = T): every counted row equals the
+    plain version's, while the rows past each count hold NaN, which no
+    counted row may read; the prefill (C = 1,020) and the 32-slot decode
+    (C = 32 > SMALL_C = 16) take the tensor-core path, C = 16 the small-C
+    path.  Tolerance: the reference's bf16 K6 tolerance."""
+    E = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(C + D)
+    counts = _routed_counts(gen, C, E, 6, cuda_device)
+    x = torch.randn(E, C, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    rows = torch.arange(C, device=cuda_device)[None, :, None]
+    x = torch.where(rows < counts[:, None, None], x, float("nan")).to(torch.bfloat16)
+    w = torch.randn(E, D, F, generator=gen, device=cuda_device).to(torch.bfloat16)
+    assert k6.gmm_path(x, w) == path
+    before = k6.path_launches[path].count
+    out = expert_ffn_matmul(x, w, counts=counts)
+    torch.cuda.synchronize()
+    assert k6.path_launches[path].count == before + 1
+    ref = grouped_matmul_ref(torch.nan_to_num(x), w, counts)
+    counted = (rows < counts[:, None, None]).expand(E, C, F)
+    torch.testing.assert_close(out.float()[counted], ref.float()[counted],
+                               rtol=3e-2, atol=3e-1)
+
+
+def test_grouped_matmul_counts_capture_in_a_graph(cuda_device):
+    """K6 with counts replays from a CUDA graph with new counts written in
+    place: the counts are read on the card, not baked in at capture."""
+    E, C, D, F = 8, 64, 256, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(E, C, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(E, D, F, generator=gen, device=cuda_device).to(torch.bfloat16)
+    counts = torch.full((E,), C, dtype=torch.int32, device=cuda_device)
+    expert_ffn_matmul(x, w, counts=counts)          # builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = expert_ffn_matmul(x, w, counts=counts)
+    new = torch.tensor([0, 1, 5, 64, 17, 0, 63, 2], dtype=torch.int32, device=cuda_device)
+    counts.copy_(new)
+    out.fill_(7.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    rows = torch.arange(C, device=cuda_device)[None, :, None]
+    ref = grouped_matmul_ref(x, w)
+    counted = (rows < new[:, None, None]).expand(E, C, F)
+    torch.testing.assert_close(out.float()[counted], ref.float()[counted],
+                               rtol=3e-2, atol=3e-1)
+    assert (out[~counted] == 7.0).all()             # past a count: not written
+
+
+def test_dropless_moe_routes_live_rows_only_in_a_graph(cuda_device):
+    """A dropless MoE layer on K6 (32 rows, C = 32: the tensor-core path)
+    captured in a CUDA graph with its live-row mask read on the card: after
+    a new mask is written in place and the graph replayed, the counts hold
+    the live rows' assignments only, the dead rows get no routed output and
+    the live rows what a batch of them alone gets.  Tolerance: the
+    reference's bf16 K6 tolerance (the batch alone runs other tiles)."""
+    from repro_torch.models import DeepSeekMoEConfig, ModelConfig
+    from repro_torch.models import moe as tmoe
+    cfg = ModelConfig(name="moe", family="moe", n_layers=1, d_model=256, n_heads=4,
+                      n_kv=4, d_ff=256, vocab=64, act="swiglu", param_dtype="bfloat16",
+                      compute_dtype="bfloat16", use_kernels=True,
+                      moe=DeepSeekMoEConfig(n_experts=8, top_k=2, d_ff_expert=128,
+                                            n_shared_experts=2,
+                                            scoring="sigmoid", selection_bias=True,
+                                            routed_scale=2.446, dropless=True))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    p = tmoe.moe_init(gen, cfg)
+    x = torch.randn(32, 1, 256, generator=gen, device=cuda_device).to(torch.bfloat16)
+    live = torch.ones(32, dtype=torch.bool, device=cuda_device)
+    counts = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    tmoe.moe_apply(p, x, cfg, counts, live)          # builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, _ = tmoe.moe_apply(p, x, cfg, counts, live)
+    new = torch.rand(32, generator=gen, device=cuda_device) < 0.4
+    live.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    alone = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    want, _ = tmoe.moe_apply(p, x[new], cfg.replace(use_kernels=False), alone)
+    assert torch.equal(counts, alone) and int(counts.sum()) == 2 * int(new.sum())
+    torch.testing.assert_close(y[new].float(), want.float(), rtol=3e-2, atol=3e-1)
+    h = x.reshape(32, 256)                           # a dead row: the shared experts' alone
+    shared = tmoe.activate(h @ p["shared_gate"], h @ p["shared_in"], "swiglu") @ p["shared_out"]
+    assert torch.equal(y.reshape(32, 256)[~new], shared[~new])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 4e-2)])
+def test_mla_prefill_and_absorbed_decode_on_the_card(cuda_device, dtype, tol):
+    """Latent attention at Moonlight-16B-A3B's widths (16 heads, a 512-wide
+    latent and a 64-wide rope key, q/k 192, v 128) on the card: a prefill
+    of 300 tokens (SDPA held to the memory-efficient backend) and a prefill
+    of 292 followed by 8 absorbed decode steps through the latent cache,
+    inside a captured graph, give the same outputs at the last 8 positions.
+    Tolerances: the float32 path's rounding, and the reference's bf16
+    tolerance."""
+    from repro_torch.models import DeepSeekMoEConfig, MLAConfig, ModelConfig
+    from repro_torch.models.mla import mla_decode, mla_init, mla_prefill
+    cfg = ModelConfig(name="mla", family="moe", n_layers=1, d_model=2048, n_heads=16,
+                      n_kv=16, d_ff=1024, vocab=64, rope_theta=50000.0,
+                      compute_dtype=str(dtype).split(".")[1],
+                      moe=DeepSeekMoEConfig(n_experts=2, top_k=1, d_ff_expert=8,
+                                            mla=MLAConfig(512, 128, 64, 128)))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = mla_init(gen, cfg, dtype=dtype)
+    S, n = 300, 8
+    x = torch.randn(1, S, 2048, generator=gen, device=cuda_device).to(dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    want, _ = mla_prefill(p, x, cfg, positions=pos)
+    _, lat = mla_prefill(p, x[:, :S - n], cfg, positions=pos[:S - n])
+    cache = torch.zeros(1, 512, 576, dtype=dtype, device=cuda_device)
+    cache[:, :S - n] = lat
+    fill = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    xt = torch.zeros(1, 1, 2048, dtype=dtype, device=cuda_device)
+    step = lambda: mla_decode(p, xt, cfg, cache, positions=fill[:, None], cache_pos=fill)
+    xt.copy_(x[:, S - n:S - n + 1]); fill.fill_(S - n)
+    outs = [step().clone()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for t in range(S - n + 1, S):
+        xt.copy_(x[:, t:t + 1]); fill.fill_(t)
+        graph.replay()
+        outs.append(out.clone())
+    got = torch.cat(outs, dim=1).float()
+    ref = want[:, S - n:].float()
+    assert (got - ref).abs().max() <= tol * ref.abs().max()
+
+
 def _moe_cfg():
     """moonshot's smoke config with a head dim the attention kernels take."""
     return get_smoke_config("moonshot-v1-16b-a3b").replace(

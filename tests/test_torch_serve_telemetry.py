@@ -261,3 +261,108 @@ def test_logs_drop_their_oldest_records_at_maxlen():
     assert [r.rid for r in log.requests(3.0, 4.25)] == [3, 4]
     log.request_log.append(telemetry.RequestRecord(9, 4, 4, 5.0))     # no first token yet
     assert [r.rid for r in log.requests(0.0, 99.0)] == [3, 4]
+
+
+# ---------------------------------------------------------------------------
+# MoE counters and model spans: a tiny DeepSeek-V3 decoder (latent attention,
+# one dense layer, two dropless MoE layers of 8 experts, top-2)
+# ---------------------------------------------------------------------------
+def _deepseek(use_kernels=True):
+    from repro_torch.models import DeepSeekMoEConfig, MLAConfig, ModelConfig
+    cfg = ModelConfig(
+        name="tiny-deepseek", family="moe", n_layers=3, d_model=64, n_heads=4, n_kv=4,
+        d_ff=96, vocab=128, act="swiglu", tie_embeddings=False, rope_theta=50000.0,
+        param_dtype="float32", compute_dtype="float32", use_kernels=use_kernels,
+        moe=DeepSeekMoEConfig(n_experts=8, top_k=2, d_ff_expert=24, n_shared_experts=2,
+                              scoring="sigmoid", selection_bias=True, routed_scale=2.446,
+                              dropless=True, first_dense_layers=1,
+                              mla=MLAConfig(32, 16, 8, 16)))
+    model = Model(cfg)
+    return model, model.init(torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def deepseek():
+    return _deepseek()
+
+
+def test_moe_counters_per_step(deepseek):
+    """Prefill and decode apart: layer launches, experts that held a token
+    (as the engine's device buffer has them), real rows (tokens x top-2 x 2
+    MoE layers; in the decode the live rows' only, a free slot's row is
+    routed to no expert) and rows computed (the plain route on the CPU
+    computes every row of the C = T buffer)."""
+    TELEMETRY.clear()
+    model, params = deepseek
+    eng = ServeEngine(model, params, ServeConfig(batch=SLOTS, max_len=MAX_LEN), device="cpu")
+    eng.submit(*(Request(rid, _prompt(rid, L), max_new_tokens=4)
+                 for rid, L in enumerate((5, 9, 5))))
+    seen = []
+    while eng.has_work:
+        eng.step()
+        moe = eng._c_moe
+        seen.append((TELEMETRY.step_log[-1], int((moe.prefill[:2] > 0).sum()),
+                     int((moe.decode > 0).sum())))
+    (first, pre_experts, dec_experts), *rest = seen
+    # one prefill group a length: 2 rows of 5 and 1 of 9 tokens
+    assert first.moe_prefill == (2 * 2, pre_experts, (10 + 9) * 2 * 2, 2 * 8 * (10 + 9))
+    assert first.decode_rows == 3 < SLOTS
+    assert first.moe_decode == (2, dec_experts, 3 * 2 * 2, 2 * 8 * SLOTS)
+    for rec, _, dec in rest:
+        assert rec.moe_prefill is None
+        if rec.decode_rows:
+            assert rec.moe_decode == (2, dec, rec.decode_rows * 2 * 2, 2 * 8 * SLOTS)
+    assert 0 < dec_experts <= 2 * 8 and pre_experts <= 2 * 2 * 8
+
+
+def test_moe_counters_make_no_extra_sync(deepseek, model_params, monkeypatch):
+    """The MoE engine synchronizes, and reads tensors back, as often as a
+    dense one: once for an admission, once for a decode, one token
+    read-back a step."""
+    from repro_torch.serve import engine as engine_mod
+    counts = []
+    for model, params in (deepseek, model_params):
+        syncs, reads = [], []
+        real_sync, real_cpu = engine_mod._sync, torch.Tensor.cpu
+        monkeypatch.setattr(engine_mod, "_sync", lambda d: syncs.append(d) or real_sync(d))
+        monkeypatch.setattr(torch.Tensor, "cpu",
+                            lambda self, *a, **k: reads.append(1) or real_cpu(self, *a, **k))
+        eng = ServeEngine(model, params, ServeConfig(batch=SLOTS, max_len=MAX_LEN),
+                          device="cpu")
+        eng.submit(Request(0, _prompt(0, 8), max_new_tokens=5))
+        steps = 0
+        while eng.has_work:
+            eng.step()
+            steps += 1
+        monkeypatch.undo()
+        counts.append((len(syncs), len(reads), steps))
+    assert counts[0] == counts[1] == (1 + 4, 5, 5)
+
+
+def test_model_spans_open_in_eager_passes_under_a_profiler(deepseek, monkeypatch):
+    """``model.mla`` once a layer, ``model.moe.route`` and
+    ``model.moe.experts`` once an MoE layer, in each eager pass while a
+    profiler records, inside the engine's spans; none without one."""
+    from repro_torch.models import layers
+    model, params = deepseek
+    rec = _Recorder()
+    monkeypatch.setattr(telemetry, "record_function", rec)
+    monkeypatch.setattr(layers, "record_function", rec)
+    eng = ServeEngine(model, params, ServeConfig(batch=SLOTS, max_len=MAX_LEN), device="cpu")
+    eng.submit(Request(0, _prompt(0, 8), max_new_tokens=2))
+    eng.drain()
+    assert rec.calls == []
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.submit(Request(1, _prompt(1, 8), max_new_tokens=2))
+        eng.drain()
+    names = [n for n, _ in rec.calls]
+    # one prefill and one (eager, CPU) decode
+    assert names.count("model.mla") == 2 * 3
+    assert names.count("model.moe.route") == names.count("model.moe.experts") == 2 * 2
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()]
+    outer = [(s, e) for n, s, e in events if n in ("serve.prefill", "serve.decode")]
+    for n, s, e in events:
+        if n.startswith("model."):
+            assert any(s0 <= s and e <= e0 for s0, e0 in outer), n
